@@ -1,0 +1,39 @@
+"""The port imports torch and never jax.
+
+A fresh interpreter imports every module of ``gdrnpp_bop2022_torch``;
+no ``jax``, ``jaxlib``, ``flax`` or ``optax`` module may appear in
+``sys.modules`` afterwards.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import gdrnpp_bop2022_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+print(json.dumps({"modules": names, "jax": bad}))
+"""
+
+
+def test_port_imports_no_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["jax"] == [], out["jax"]
+    for m in ("geometry.rotations", "geometry.se3", "ops.layer_norm", "ops.crop",
+              "models.layers", "models.backbones.convnext",
+              "models.heads.top_down_head", "models.heads.conv_pnp_net",
+              "models.gdrn", "engine.batching", "engine.inference",
+              "datasets.test_loader", "datasets.bop_data", "datasets.meta",
+              "bop.inout", "utils.weights", "utils.cuda_build", "config"):
+        assert f"gdrnpp_bop2022_torch.{m}" in out["modules"], m
