@@ -4,22 +4,37 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels from the sources in this checkout,
-checks each against its plain PyTorch version on the card, then serves a
-few requests through the port's main path at the flagship width
-(``Config()``: convnext_base, 256 -> 64, 21 classes, bf16, batch 64) with
-weights drawn from a seed, and checks the flagship model on the card
-against the same model on the CPU in fp32. Phases:
+checks each against its plain PyTorch version on the card, then drives the
+port's two served paths with weights drawn from a seed:
 
-  1. device: name, versions, power limit; build the kernels;
-  2. kernel vs plain on the card at the shapes the main path gives it;
-  3. the serving slice: PNGs + detections on disk -> index_bop_split ->
+  * RGB: the flagship ``Config()`` (convnext_base, 256 -> 64, 21 classes,
+    bf16, batch 64), ``post_mode="direct"``;
+  * RGB-D: ``configs.ycbv_convnext_base_rgbd()`` (two convnext_base, concat
+    fusion, bf16, batch 64), ``post_mode="depth_refine"`` against the depth
+    PNGs and a bank of 21 synthetic ellipsoid meshes of 4096 faces,
+
+and checks the models on the card against the same models on the CPU in
+fp32. Phases:
+
+  1. device: name, versions, power limit; build both kernels (one nvcc
+     each, started together);
+  2. B1 (LayerNorm) vs plain at the shapes the main paths give it;
+  3. B2 (rasterizer) vs plain, both modes: the flagship depth-refine batch
+     (64 ROIs, 64x64, 4096-face meshes), a ragged 54x72 case, 2 ROIs at
+     480x640;
+  4. the RGB slice: PNGs + detections on disk -> index_bop_split ->
      load_detections -> iter_test_batches -> run_gdrn_inference ->
      results_to_bop_rows -> save_bop_results, with launch counts;
-  4. card vs CPU parity of the flagship model in fp32 (TF32 off).
+  5. the RGB-D slice: the same with depth PNGs, the model bank from PLY
+     files, the dual-stream model and depth refinement, with launch counts;
+  6. depth refinement at batch 64 from GT R and GT t + 4 cm in z, through
+     B2 and through the plain rasterizer;
+  7. card vs CPU parity of the RGB and the RGB-D flagship in fp32.
 
-Any failure raises (exit code 1). Without a CUDA device it exits 1 before
-printing any result. The next-to-last line is the kernels' JSON record,
-the last line is {"ok": true, "device": {...}}.
+The scene's sensor depth is analytic (ray-ellipsoid), never rendered by the
+kernel under test. Any failure raises (exit code 1). Without a CUDA device
+it exits 1 before printing any result. The next-to-last line is the
+kernels' JSON record, the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -44,10 +59,26 @@ LN_SHAPES = ((4096, 128, 5), (1024, 256, 4), (256, 512, 28), (64, 1024, 3))
 # B1 vs plain: fp32 within 1e-5 abs; bf16 within one bf16 ulp of the
 # output (rounding the same fp32 value may land one ulp apart), + 1e-5
 LN_TOL_F32 = 1e-5
+# B2 vs plain: identical silhouettes; depth 1e-5 m and xyz 1e-4 m where
+# hit (the JAX package's Pallas-vs-XLA bounds); both round each product
+# alike (no FMA), so they are expected to agree exactly
+RASTER_DEPTH_TOL = 1e-5
+RASTER_XYZ_TOL = 1e-4
+# the plain rasterizer on the card: larger blocks than its CPU default
+PLAIN_MAX_BLOCK = 1 << 24
+# fp32 operations of one pixel-face test that every valid face needs: two
+# edge functions (4 sub, 2 mul, 1 sub, 1 mul each) and w2 (2 sub)
+RASTER_OPS_PER_TEST = 18
+H100_FP32_FLOPS = 67e12   # dense fp32 outside the tensor cores (data sheet)
+H100_BYTES_PER_S = 3.35e12
 # card vs CPU, fp32 flagship: 40 blocks of convs whose algorithms differ
 # (cuDNN vs oneDNN) and sum in another order
 PARITY_ROT_TOL = 1e-3
 PARITY_REL_TOL = 1e-3
+# the synthetic RGB-D scene: 21 ellipsoids of 4096 faces (n_lat 33, n_lon 64)
+MESH_LAT, MESH_LON = 33, 64
+REFINE_OFFSET_M = 0.04
+REFINE_T_TOL = 1e-5       # refined t, B2 vs the plain rasterizer (m)
 
 
 def check(cond, msg):
@@ -76,7 +107,7 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 def phase_device():
     name = torch.cuda.get_device_name(0)
-    log(f"[1/4] device: {name} x{torch.cuda.device_count()}  torch "
+    log(f"[1/7] device: {name} x{torch.cuda.device_count()}  torch "
         f"{torch.__version__}  CUDA {torch.version.cuda}  python "
         f"{sys.version.split()[0]}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -85,12 +116,20 @@ def phase_device():
     card = smi.splitlines()[0].strip()
     log(card)
     from gdrnpp_bop2022_torch.ops import layer_norm as ln_mod
+    from gdrnpp_bop2022_torch.ops import raster as raster_mod
+    from gdrnpp_bop2022_torch.utils.cuda_build import build_kernel_libraries
     t0 = time.perf_counter()
-    ln_mod._kernel()                                # nvcc build + load
-    log(f"[1/4] built csrc/layer_norm.cu for sm_90a in "
+    build_kernel_libraries(["layer_norm", "raster"])    # nvcc, both at once
+    ln_mod._kernel()
+    raster_mod._kernel()
+    log(f"[1/7] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s")
     return name, card
 
+
+# ---------------------------------------------------------------------------
+# B1: LayerNorm
+# ---------------------------------------------------------------------------
 
 def _ln_case(rows, C, dtype, g):
     from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm, layer_norm_ref
@@ -110,28 +149,312 @@ def _ln_case(rows, C, dtype, g):
 
 
 def phase_kernels(card):
+    import torch.nn.functional as F
     from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm, layer_norm_ref
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    worst, ms, plain_ms, lib_ms, n_bytes = 0.0, 0.0, 0.0, 0.0, 0
     cases = [(BATCH * r, C, dt, n) for r, C, n in LN_SHAPES
              for dt in (torch.bfloat16, torch.float32)]
     cases += [(1001, C, dt, 0) for C in (96, 192, 384, 768)
               for dt in (torch.bfloat16, torch.float32)]
     for rows, C, dt, n in cases:
         x, w, b, err, ok = _ln_case(rows, C, dt, g)
-        line = f"[2/4] B1 rows={rows} C={C} {str(dt)[6:]} max_abs_err={err:.3g}"
+        line = f"[2/7] B1 rows={rows} C={C} {str(dt)[6:]} max_abs_err={err:.3g}"
         if n and dt == torch.bfloat16:      # the main path's shapes: time them
+            wb, bb = w.to(dt), b.to(dt)     # F.layer_norm takes one dtype
             k = cuda_ms(lambda: layer_norm(x, w, b))
             p = cuda_ms(lambda: layer_norm_ref(x, w, b))
-            ms, plain_ms, worst = ms + n * k, plain_ms + n * p, max(worst, err)
-            line += f" kernel_ms={k:.4f} plain_ms={p:.4f}"
+            lib = cuda_ms(lambda: F.layer_norm(x, (C,), wb, bb, 1e-6))
+            ms, plain_ms, lib_ms = ms + n * k, plain_ms + n * p, lib_ms + n * lib
+            worst = max(worst, err)
+            n_bytes += n * (2 * x.numel() * x.element_size() + 2 * C * 4)
+            line += f" kernel_ms={k:.4f} plain_ms={p:.4f} F.layer_norm_ms={lib:.4f}"
         log(line)
         check(ok, f"B1 disagrees with its plain version at rows={rows} C={C} "
                   f"{dt}: max abs err {err}")
-    log(f"[2/4] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    bound = n_bytes / H100_BYTES_PER_S * 1e3
+    log(f"[2/7] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.layer_norm {lib_ms:.4f} ms, "
+        f"bound {bound:.4f} ms ({n_bytes / 1e9:.3f} GB at 3.35 TB/s)  [{card}]")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": "bytes"}
 
+
+# ---------------------------------------------------------------------------
+# the synthetic RGB-D scene: ellipsoid meshes, analytic depth
+# ---------------------------------------------------------------------------
+
+def ellipsoid_mesh(axes_mm):
+    """UV-tessellated ellipsoid: 2 + (MESH_LAT - 1) * MESH_LON vertices,
+    2 * MESH_LON * (MESH_LAT - 1) faces (4096), outward winding."""
+    th = np.linspace(0, np.pi, MESH_LAT + 1)[1:-1]
+    ph = np.linspace(0, 2 * np.pi, MESH_LON, endpoint=False)
+    ring = np.stack([np.outer(np.sin(th), np.cos(ph)), np.outer(np.sin(th), np.sin(ph)),
+                     np.repeat(np.cos(th)[:, None], MESH_LON, 1)], -1).reshape(-1, 3)
+    pts = np.concatenate([[[0, 0, 1]], ring, [[0, 0, -1]]]) * np.asarray(axes_mm)
+    n, faces = MESH_LON, []
+    for j in range(n):
+        k = (j + 1) % n
+        faces.append([0, 1 + j, 1 + k])
+        for i in range(MESH_LAT - 2):
+            a, b = 1 + i * n + j, 1 + i * n + k
+            faces += [[a, a + n, b + n], [a, b + n, b]]
+        last = 1 + (MESH_LAT - 2) * n
+        faces.append([last + j, len(pts) - 1, last + k])
+    return pts, np.asarray(faces)
+
+
+def write_ply(path, pts, faces):
+    with open(path, "wb") as f:
+        f.write((f"ply\nformat binary_little_endian 1.0\nelement vertex {len(pts)}\n"
+                 "property float x\nproperty float y\nproperty float z\n"
+                 f"element face {len(faces)}\n"
+                 "property list uchar int vertex_indices\nend_header\n").encode())
+        f.write(np.asarray(pts, "<f4").tobytes())
+        rec = np.zeros(len(faces), [("n", "u1"), ("i", "<i4", 3)])
+        rec["n"], rec["i"] = 3, faces
+        f.write(rec.tobytes())
+
+
+def pixel_rays(K, us, vs):
+    """Camera rays (N, 3) with z = 1 through pixel coords us, vs (N,)."""
+    y = (vs - K[1, 2]) / K[1, 1]
+    x = (us - K[0, 2] - K[0, 1] * y) / K[0, 0]
+    return np.stack([x, y, np.ones_like(x)], -1)
+
+
+def ellipsoid_hits(rays, R, t, axes_m):
+    """Nearest ray-ellipsoid hit: (depth (N,), 0 on a miss; object-frame
+    point (N, 3)). rays (N, 3) with z = 1, pose R (3, 3), t (3,) meters."""
+    m = rays @ R                       # R^T d
+    n = R.T @ t
+    A = 1.0 / np.square(axes_m)
+    a = (m * m * A).sum(1)
+    b = -2.0 * (m * n * A).sum(1)
+    c = (n * n * A).sum() - 1.0
+    disc = b * b - 4 * a * c
+    s = (-b - np.sqrt(np.maximum(disc, 0.0))) / (2 * a)
+    hit = (disc >= 0) & (s > 0)
+    return np.where(hit, s, 0.0), s[:, None] * m - n
+
+
+def random_rotation(rs):
+    q, _ = np.linalg.qr(rs.randn(3, 3))
+    return q * np.sign(np.linalg.det(q))
+
+
+def make_rgbd_scene(root, rs):
+    """A BOP test split of N_IMAGES 480x640 RGB + depth PNGs (YCB-V ids and
+    camera, depth_scale 0.1) with DETS_PER_IMAGE ellipsoids each, the 21
+    models as PLY + models_info.json, and a detections file."""
+    import cv2
+    from gdrnpp_bop2022_torch.bop.inout import save_json
+    from gdrnpp_bop2022_torch.datasets.meta import get_meta
+    meta = get_meta("ycbv")
+    K = meta.camera_matrix.astype(np.float64)
+    axes_mm = rs.uniform(25.0, 100.0, (21, 3))
+    models_dir = os.path.join(root, "models")
+    os.makedirs(models_dir)
+    info = {}
+    for i in range(21):
+        pts, faces = ellipsoid_mesh(axes_mm[i])
+        write_ply(os.path.join(models_dir, f"obj_{i + 1:06d}.ply"), pts, faces)
+        a = axes_mm[i]
+        info[str(i + 1)] = {"diameter": float(2 * a.max()), "min_x": -a[0], "min_y": -a[1],
+                            "min_z": -a[2], "size_x": 2 * a[0], "size_y": 2 * a[1],
+                            "size_z": 2 * a[2]}
+    save_json(os.path.join(models_dir, "models_info.json"), info)
+
+    sdir = os.path.join(root, "test", "000048")
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(sdir, sub))
+    H, W = meta.height, meta.width
+    gt, cam, dets = {}, {}, {}
+    yy, xx = np.mgrid[0:H, 0:W]
+    for im in range(N_IMAGES):
+        depth = np.zeros((H, W))
+        shade = np.zeros((H, W))
+        objs = rs.choice(np.arange(1, 22), DETS_PER_IMAGE, replace=False)
+        gt[str(im)], boxes = [], []
+        for o in objs:
+            ax = axes_mm[o - 1] * 1e-3
+            R = random_rotation(rs)
+            z = rs.uniform(0.7, 1.3)
+            u, v = rs.uniform(90, W - 90), rs.uniform(90, H - 90)
+            t = z * pixel_rays(K, np.array([u]), np.array([v]))[0]
+            r = int(K[0, 0] * ax.max() / (z - ax.max())) + 2
+            x0, x1 = max(int(u) - r, 0), min(int(u) + r + 1, W)
+            y0, y1 = max(int(v) - r, 0), min(int(v) + r + 1, H)
+            d, _ = ellipsoid_hits(pixel_rays(K, xx[y0:y1, x0:x1].ravel().astype(float),
+                                             yy[y0:y1, x0:x1].ravel().astype(float)),
+                                  R, t, ax)
+            d = d.reshape(y1 - y0, x1 - x0)
+            win = depth[y0:y1, x0:x1]
+            front = (d > 0) & ((win == 0) | (d < win))
+            win[front] = d[front]
+            shade[y0:y1, x0:x1][front] = 60 + 9 * o
+            ys, xs = np.nonzero(d > 0)
+            check(len(xs) > 0, "an object of the scene is not in view")
+            bx, by = x0 + xs.min(), y0 + ys.min()
+            boxes.append({"obj_id": int(o), "score": float(rs.uniform(0.3, 1.0)),
+                          "time": 0.01, "bbox_est": [float(bx + rs.uniform(-3, 3)),
+                                                     float(by + rs.uniform(-3, 3)),
+                                                     float(xs.max() - xs.min() + 1),
+                                                     float(ys.max() - ys.min() + 1)]})
+            gt[str(im)].append({"obj_id": int(o), "cam_R_m2c": R.ravel().tolist(),
+                                "cam_t_m2c": (t * 1000).tolist()})
+        img = (np.stack([shade + xx * 0.1, shade * 0.8 + yy * 0.1, shade * 0.6], -1)
+               + rs.randint(0, 30, (H, W, 3))) % 256
+        cv2.imwrite(os.path.join(sdir, "rgb", f"{im:06d}.png"), img.astype(np.uint8))
+        cv2.imwrite(os.path.join(sdir, "depth", f"{im:06d}.png"),
+                    np.round(depth * 10000).astype(np.uint16))   # 0.1 mm units
+        cam[str(im)] = {"cam_K": K.ravel().tolist(), "depth_scale": 0.1}
+        dets[f"48/{im}"] = boxes
+    save_json(os.path.join(sdir, "scene_gt.json"), gt)
+    save_json(os.path.join(sdir, "scene_camera.json"), cam)
+    save_json(os.path.join(root, "dets.json"), dets)
+    return {"meta": meta, "K": K, "axes_mm": axes_mm, "models_dir": models_dir,
+            "split_dir": os.path.join(root, "test"),
+            "det_file": os.path.join(root, "dets.json")}
+
+
+def refine_batch(scene, bank, rs, n=BATCH, out_res=64):
+    """A depth-refine batch at GT: per ROI a label, GT pose, crop around the
+    projected centre, and the analytic sensor depth, mask and normalised
+    object XYZ at the crop's pixels (what a perfect network would give)."""
+    K = scene["K"]
+    labels = rs.randint(0, 21, n)
+    R = np.stack([random_rotation(rs) for _ in range(n)])
+    z = rs.uniform(0.6, 1.2, n)
+    t = np.stack([rs.uniform(-0.08, 0.08, n) * z, rs.uniform(-0.06, 0.06, n) * z, z], 1)
+    uvw = t @ K.T
+    centers = uvw[:, :2] / uvw[:, 2:]
+    ax = scene["axes_mm"][labels] * 1e-3
+    scales = 1.5 * K[0, 0] * 2 * ax.max(1) / z
+    step = scales / out_res
+    off = np.arange(out_res) - out_res * 0.5
+    depth = np.zeros((n, out_res, out_res))
+    xyz = np.zeros((n, out_res, out_res, 3))
+    for i in range(n):
+        gx = centers[i, 0] + off[None, :] * step[i]
+        gy = centers[i, 1] + off[:, None] * step[i]
+        gx, gy = np.broadcast_arrays(gx, gy)
+        d, q = ellipsoid_hits(pixel_rays(K, gx.ravel(), gy.ravel()), R[i], t[i], ax[i])
+        hit = (d > 0)[:, None]
+        depth[i] = d.reshape(out_res, out_res)
+        xyz[i] = np.where(hit, q / (2 * ax[i]) + 0.5, 0.0).reshape(out_res, out_res, 3)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
+    lab = torch.as_tensor(labels, device="cuda")
+    return {"R": f32(R), "t": f32(t), "mask": f32(depth > 0), "xyz": f32(xyz),
+            "depth": f32(depth), "K": f32(np.tile(K, (n, 1, 1))), "centers": f32(centers),
+            "scales": f32(scales), "verts": f32(bank.verts)[lab],
+            "faces": torch.as_tensor(bank.faces, device="cuda")[lab],
+            "extents": f32(bank.extents)[lab], "out_res": out_res}
+
+
+# ---------------------------------------------------------------------------
+# B2: the rasterizer
+# ---------------------------------------------------------------------------
+
+def _raster_case(label, verts, faces, R, t, K, H, W):
+    """Kernel (both modes) vs plain (both modes) at one shape; returns the
+    worst depth / xyz errors."""
+    from gdrnpp_bop2022_torch.ops.raster import render_depth_xyz_cuda
+    from gdrnpp_bop2022_torch.ops.rasterizer import render_depth_xyz_batch
+    d, x = render_depth_xyz_cuda(verts, faces, R, t, K, H, W)
+    d_only, _ = render_depth_xyz_cuda(verts, faces, R, t, K, H, W, need_xyz=False)
+    d_ref, x_ref = render_depth_xyz_batch(verts, faces, R, t, K, H, W,
+                                          max_block=PLAIN_MAX_BLOCK)
+    d_ref_only, _ = render_depth_xyz_batch(verts, faces, R, t, K, H, W, need_xyz=False,
+                                           max_block=PLAIN_MAX_BLOCK)
+    torch.cuda.synchronize()
+    hit = d_ref > 0
+    check(bool(hit.any()), f"B2 {label}: nothing rendered")
+    check(torch.equal(d > 0, hit) and torch.equal(d_only > 0, hit),
+          f"B2 {label}: silhouettes differ from the plain version")
+    check(torch.equal(d_only, d), f"B2 {label}: depth-only depth != attribute-mode depth")
+    check(torch.equal(d_ref_only, d_ref), f"B2 {label}: plain depth-only != plain full")
+    d_err = float((d - d_ref)[hit].abs().max())
+    x_err = float((x - x_ref)[hit].abs().max())
+    check(d_err <= RASTER_DEPTH_TOL and x_err <= RASTER_XYZ_TOL,
+          f"B2 {label}: depth err {d_err}, xyz err {x_err}")
+    check(bool((d[~hit] == 0).all() and (x[~hit] == 0).all()), f"B2 {label}: misses not 0")
+    log(f"[3/7] B2 {label}: silhouettes identical ({int(hit.sum())} px hit), depth-only "
+        f"== attribute depth bit for bit; max abs err depth {d_err:.3g} m, xyz "
+        f"{x_err:.3g} m")
+    return max(d_err, x_err)
+
+
+def raster_bound(verts, faces, R, t, K, H, W):
+    """Least time of one depth-only call on this input: fp32 ops of the
+    pixel-face tests of the valid faces vs the bytes read and written."""
+    from gdrnpp_bop2022_torch.ops.raster import _pack_face_data, transform_verts
+    fd = _pack_face_data(transform_verts(verts, R, t), verts, faces, K, with_attrs=False)
+    tests = float(fd[:, 9].sum()) * H * W
+    ops_s = tests * RASTER_OPS_PER_TEST / H100_FP32_FLOPS
+    n_bytes = sum(a.numel() * a.element_size() for a in (verts, faces, R, t, K)) \
+        + verts.shape[0] * H * W * 4
+    bytes_s = n_bytes / H100_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s else "bytes"), tests
+
+
+def phase_raster(card, scene, bank):
+    from gdrnpp_bop2022_torch.geometry.camera import centered_crop_K
+    from gdrnpp_bop2022_torch.ops.raster import (_kernel, _pack_face_data,
+                                                 render_depth_xyz_cuda, transform_verts)
+    from gdrnpp_bop2022_torch.ops.rasterizer import render_depth_xyz_batch
+    rs = np.random.RandomState(SEED + 3)
+    worst = 0.0
+    # the flagship: the depth-refine batch (64 ROIs, 64x64 crop-K, 4096 faces)
+    rb = refine_batch(scene, bank, rs)
+    cK = centered_crop_K(rb["K"], rb["centers"], rb["scales"], 64)
+    flag = (rb["verts"], rb["faces"], rb["R"], rb["t"], cK, 64, 64)
+    worst = max(worst, _raster_case(f"flagship B={BATCH} 64x64 F={bank.faces.shape[1]}",
+                                    *flag))
+    # ragged: 54x72 (3888 px, not a multiple of the 256-pixel tile)
+    K2 = cK[:4].clone()
+    K2[:, 0, 2] -= 5.0
+    K2[:, 1, 2] -= 3.0
+    worst = max(worst, _raster_case("ragged B=4 54x72", rb["verts"][:4], rb["faces"][:4],
+                                    rb["R"][:4], rb["t"][:4], K2, 54, 72))
+    # full image: 2 ROIs at 480x640 with the camera's own K (what VSD renders)
+    K = torch.as_tensor(scene["K"], dtype=torch.float32, device="cuda")[None].expand(2, 3, 3)
+    t2 = torch.tensor([[0.03, -0.02, 0.45], [-0.05, 0.04, 0.6]], device="cuda")
+    worst = max(worst, _raster_case("full image B=2 480x640", rb["verts"][:2],
+                                    rb["faces"][:2], rb["R"][:2], t2, K.contiguous(),
+                                    480, 640))
+    # times at the flagship, depth only (the mode depth refinement runs)
+    k_ms = cuda_ms(lambda: render_depth_xyz_cuda(*flag, need_xyz=False))
+    k_attr_ms = cuda_ms(lambda: render_depth_xyz_cuda(*flag))
+    pack = lambda: _pack_face_data(transform_verts(flag[0], flag[2], flag[3]),  # noqa: E731
+                                   flag[0], flag[1], flag[4], with_attrs=False)
+    pack_ms = cuda_ms(pack)
+    # the kernel alone on packed faces (a direct call: no launch is counted)
+    fd = pack().contiguous()
+    out = torch.empty((BATCH, 64, 64), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    launch = lambda: _kernel()(fd.data_ptr(), BATCH, fd.shape[1], fd.shape[2], 64, 64,  # noqa: E731
+                               out.data_ptr(), None, 0, stream)
+    check(launch() == 0, "B2 direct launch failed")
+    kernel_only_ms = cuda_ms(launch)
+    check(torch.equal(out, render_depth_xyz_cuda(*flag, need_xyz=False)[0]),
+          "B2 direct launch differs from the wrapper")
+    p_ms = cuda_ms(lambda: render_depth_xyz_batch(*flag, need_xyz=False,
+                                                  max_block=PLAIN_MAX_BLOCK), iters=3,
+                   warmup=1)
+    bound, bound_by, tests = raster_bound(*flag)
+    log(f"[3/7] B2 flagship depth only: wrapper {k_ms:.4f} ms (the face packing "
+        f"alone {pack_ms:.4f} ms, the kernel alone {kernel_only_ms:.4f} ms; attribute "
+        f"mode {k_attr_ms:.4f} ms), plain {p_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({tests:.3e} pixel-face tests x {RASTER_OPS_PER_TEST} fp32 ops at 67 TFLOP/s,"
+        f" {bound_by})  [{card}]")
+    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None, "attr_ms": k_attr_ms}
+
+
+# ---------------------------------------------------------------------------
+# the served paths
+# ---------------------------------------------------------------------------
 
 def _write_scene(root, rs):
     """A BOP test split of N_IMAGES 480x640 PNGs (YCB-V ids and camera) and
@@ -167,15 +490,28 @@ def _write_scene(root, rs):
     return meta, os.path.join(root, "test"), os.path.join(root, "dets.json")
 
 
-def phase_slice(card, tmp):
+def _check_rows(results, n_rois, tmp, tag):
     from gdrnpp_bop2022_torch.bop.inout import load_bop_results, save_bop_results
+    from gdrnpp_bop2022_torch.engine.inference import results_to_bop_rows
+    check(len(results) == n_rois, f"{tag}: {len(results)} rows for {n_rois} detections")
+    R = np.stack([r["R"] for r in results])
+    t = np.stack([r["t"] for r in results])
+    check(np.isfinite(R).all() and np.isfinite(t).all(), f"{tag}: non-finite pose")
+    orth = float(np.abs(np.swapaxes(R, 1, 2) @ R - np.eye(3)).max())
+    check(orth < 1e-3, f"{tag}: |R^T R - I| = {orth}")
+    csv = os.path.join(tmp, f"poses_{tag}.csv")
+    save_bop_results(csv, results_to_bop_rows(results))
+    check(len(load_bop_results(csv)) == n_rois, f"{tag}: CSV row count")
+    return orth
+
+
+def phase_slice(card, tmp):
     from gdrnpp_bop2022_torch.config import Config
     from gdrnpp_bop2022_torch.datasets.bop_data import (index_bop_split,
                                                         load_detections,
                                                         make_records_by_image)
     from gdrnpp_bop2022_torch.datasets.test_loader import iter_test_batches
-    from gdrnpp_bop2022_torch.engine.inference import (results_to_bop_rows,
-                                                       run_gdrn_inference)
+    from gdrnpp_bop2022_torch.engine.inference import run_gdrn_inference
     from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
     from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm
     from gdrnpp_bop2022_torch.utils.weights import seeded_state_dict
@@ -185,7 +521,8 @@ def phase_slice(card, tmp):
     check(pc.backbone.name == "convnext_base" and pc.num_classes == 21
           and pc.input_res == 256 and pc.output_res == 64
           and cfg.model.compute_dtype == "bfloat16", "Config() is not the flagship")
-    model = build_gdrn(cfg, device="cuda")
+    model = build_gdrn(cfg)
+    check(next(model.parameters()).is_cuda, "build_gdrn did not build on the card")
     model.load_state_dict(seeded_state_dict(model, SEED), strict=True)
     forwards = [0]
     model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
@@ -197,7 +534,7 @@ def phase_slice(card, tmp):
     extents = np.random.RandomState(SEED + 1).uniform(0.05, 0.25, (21, 3))
 
     stats = {}
-    layer_norm.launches = 0                       # count the main path only
+    layer_norm.launches = 0                       # count this path only
     results = run_gdrn_inference(model, batches, extents,
                                  input_res=pc.input_res, output_res=pc.output_res,
                                  pixel_mean=cfg.model.pixel_mean,
@@ -205,24 +542,16 @@ def phase_slice(card, tmp):
                                  post_mode="direct", stats=stats)
     launches = layer_norm.launches
     n_rois = N_IMAGES * DETS_PER_IMAGE
-    check(len(results) == n_rois, f"{len(results)} rows for {n_rois} detections")
     check(forwards[0] == stats["n_batches"] + 1, f"{forwards[0]} forwards for "
           f"{stats['n_batches']} batches + warm-up")
     check(launches == LN_PER_FORWARD * forwards[0],
           f"layer_norm launches {launches} != 40 x {forwards[0]} forwards")
-    R = np.stack([r["R"] for r in results])
-    t = np.stack([r["t"] for r in results])
-    check(np.isfinite(R).all() and np.isfinite(t).all(), "non-finite pose")
-    orth = float(np.abs(np.swapaxes(R, 1, 2) @ R - np.eye(3)).max())
-    check(orth < 1e-3, f"|R^T R - I| = {orth}")
-    csv = os.path.join(tmp, "poses.csv")
-    save_bop_results(csv, results_to_bop_rows(results))
-    check(len(load_bop_results(csv)) == n_rois, "CSV row count")
-    log(f"[3/4] served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
+    orth = _check_rows(results, n_rois, tmp, "rgb")
+    log(f"[4/7] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
         f"batches of {BATCH} + warm-up: {forwards[0]} forwards, layer_norm "
         f"launches {launches} = 40 x {forwards[0]}; rows finite, "
         f"max|R^T R - I| = {orth:.2e}; CSV {len(results)} rows")
-    log(f"[3/4] serving (ROI crop + forward + decode, host clock after "
+    log(f"[4/7] RGB serving (ROI crop + forward + decode, host clock after "
         f"synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -230,29 +559,144 @@ def phase_slice(card, tmp):
     # the model alone at batch 64, device time by CUDA events
     b0 = next(iter_test_batches(by_im, dets, batch_size=BATCH))
     from gdrnpp_bop2022_torch.engine.batching import build_test_batch
-    dev = lambda a: torch.as_tensor(a).cuda()
+    dev = lambda a: torch.as_tensor(a).cuda()    # noqa: E731
     with torch.inference_mode():
         rb = build_test_batch(dev(b0["images"]), dev(b0["img_idx"]),
                               dev(b0["boxes_xyxy"]), dev(b0["Ks"]),
                               dev(b0["labels"]), dev(extents).float(),
                               input_res=pc.input_res, output_res=pc.output_res)
         fwd_ms = cuda_ms(lambda: model(**rb), iters=10)
-    log(f"[3/4] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[4/7] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s  [{card}]")
-    return launches, rb
+    return rb
 
 
-def phase_parity(rb):
-    """Flagship in fp32 on the card (kernel) and on the CPU (plain path)."""
-    from gdrnpp_bop2022_torch.config import Config, replace_cfg
+def phase_rgbd_slice(card, scene, bank, tmp):
+    from gdrnpp_bop2022_torch.configs import ycbv_convnext_base_rgbd
+    from gdrnpp_bop2022_torch.datasets.bop_data import (index_bop_split,
+                                                        load_detections,
+                                                        make_records_by_image)
+    from gdrnpp_bop2022_torch.datasets.test_loader import iter_test_batches
+    from gdrnpp_bop2022_torch.engine.batching import build_depth_rois, build_test_batch
+    from gdrnpp_bop2022_torch.engine.inference import (decode_dense_outputs,
+                                                       run_gdrn_inference)
+    from gdrnpp_bop2022_torch.eval.pnp_eval import depth_refine_batch
     from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
+    from gdrnpp_bop2022_torch.ops.crop import roi_crop_resize
+    from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm
+    from gdrnpp_bop2022_torch.ops.raster import render_depth_xyz_cuda
     from gdrnpp_bop2022_torch.utils.weights import seeded_state_dict
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = replace_cfg(Config(), {"model.compute_dtype": "float32"})
-    batch = {k: v[:2].float() if v.is_floating_point() else v[:2]
-             for k, v in rb.items()}
+    cfg = ycbv_convnext_base_rgbd()
+    pc = cfg.model.pose_net
+    check(pc.name == "gdrn_dstream_double_mask" and pc.fuse_type == "cat"
+          and pc.backbone.name == "convnext_base" and pc.num_classes == 21
+          and cfg.model.compute_dtype == "bfloat16" and cfg.val.use_depth_refine,
+          "the RGB-D config is not the BOP'22 recipe")
+    iters = cfg.val.depth_refine_iters
+    model = build_gdrn(cfg)
+    check(model.depth_backbone is not None and next(model.parameters()).is_cuda,
+          "the RGB-D model has no depth stream on the card")
+    model.load_state_dict(seeded_state_dict(model, SEED + 5), strict=True)
+    forwards = [0]
+    model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+
+    meta = scene["meta"]
+    by_im = make_records_by_image(index_bop_split(scene["split_dir"], meta))
+    dets = load_detections(scene["det_file"], meta, top_k_per_obj=1)
+    mk = lambda: iter_test_batches(by_im, dets, batch_size=BATCH, with_depth=True,  # noqa: E731
+                                   depth_factor=meta.depth_factor)
+    kw = dict(input_res=pc.input_res, output_res=pc.output_res,
+              pixel_mean=cfg.model.pixel_mean, pixel_std=cfg.model.pixel_std,
+              post_mode="depth_refine", model_bank=bank, depth_refine_iters=iters,
+              depth_refine_threshold=cfg.val.depth_refine_threshold,
+              mask_loss_type=pc.loss.mask_loss_type, with_depth_input=cfg.input.with_depth,
+              bp_depth=cfg.input.bp_depth, coord_2d_type=pc.pnp_net.coord_2d_type)
+    stats = {}
+    layer_norm.launches = 0                       # count this path only
+    render_depth_xyz_cuda.launches = 0
+    results = run_gdrn_inference(model, mk(), bank.extents, stats=stats, **kw)
+    ln_launches, r_launches = layer_norm.launches, render_depth_xyz_cuda.launches
+    n_rois = N_IMAGES * DETS_PER_IMAGE
+    nb = stats["n_batches"]
+    check(forwards[0] == nb + 1, f"RGB-D: {forwards[0]} forwards for {nb} batches + warm-up")
+    check(ln_launches == 2 * LN_PER_FORWARD * forwards[0],
+          f"RGB-D: layer_norm launches {ln_launches} != 80 x {forwards[0]} forwards")
+    check(r_launches == iters * (nb + 1),
+          f"RGB-D: raster launches {r_launches} != {iters} x ({nb} batches + warm-up)")
+    orth = _check_rows(results, n_rois, tmp, "rgbd")
+    log(f"[5/7] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
+        f"{bank.faces.shape[0]} meshes x {bank.faces.shape[1]} faces) in {nb} batches of "
+        f"{BATCH} + warm-up, post_mode=depth_refine x{iters}: {forwards[0]} forwards, "
+        f"layer_norm launches {ln_launches} = 80 x {forwards[0]}, raster launches "
+        f"{r_launches} = {iters} x {nb + 1}; rows finite, max|R^T R - I| = {orth:.2e}; "
+        f"CSV {len(results)} rows")
+    log(f"[5/7] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
+        f"after synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
+        f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
+        f"{BATCH}  [{card}]")
+
+    # the layers alone at batch 64, device time by CUDA events
+    b0 = next(mk())
+    dev = lambda a: torch.as_tensor(a).cuda()    # noqa: E731
+    with torch.inference_mode():
+        img_idx, Ks = dev(b0["img_idx"]), dev(b0["Ks"])
+        rb = build_test_batch(dev(b0["images"]), img_idx, dev(b0["boxes_xyxy"]), Ks,
+                              dev(b0["labels"]), dev(bank.extents).float(),
+                              input_res=pc.input_res, output_res=pc.output_res)
+        depths = dev(b0["depths"])
+        scales = pc.output_res / rb["resize_ratios"]
+        rb["roi_depth"] = build_depth_rois(depths, img_idx, rb["roi_centers"], scales,
+                                           Ks, input_res=pc.input_res)
+        fwd_ms = cuda_ms(lambda: model(**rb), iters=10)
+        out = model(**rb)
+        xyz, mask = decode_dense_outputs(out, pc.loss.mask_loss_type)
+        d_crop = roi_crop_resize(depths[..., None], rb["roi_centers"], scales,
+                                 pc.output_res, method="nearest", img_idx=img_idx)[..., 0]
+        lab = rb["roi_labels"]
+        bv = torch.as_tensor(bank.verts, device="cuda")[lab]
+        bf = torch.as_tensor(bank.faces, device="cuda")[lab]
+        ref_args = (out["rot"], out["trans"], mask, xyz, d_crop, Ks, rb["roi_centers"],
+                    scales, bv, bf, rb["roi_extents"])
+        refine_ms = cuda_ms(lambda: depth_refine_batch(*ref_args, iters=iters,
+                                                       out_res=pc.output_res), iters=10)
+    log(f"[5/7] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+        f"{BATCH / fwd_ms * 1e3:.1f} ROI/s; depth refine x{iters}: {refine_ms:.3f} ms "
+        f"per batch  [{card}]")
+    rows2 = {k: v[:2] for k, v in rb.items()}
+    return ln_launches, r_launches, rows2, {"fwd_ms": fwd_ms, "refine_ms": refine_ms,
+                                            "p50_ms": stats["p50_ms"]}
+
+
+def phase_refine(card, scene, bank):
+    """Depth refinement from GT R and GT t + 4 cm in z, through B2 and
+    through the plain rasterizer."""
+    from gdrnpp_bop2022_torch.eval.pnp_eval import depth_refine_batch
+    from gdrnpp_bop2022_torch.ops.rasterizer import render_depth_xyz_batch
+    rb = refine_batch(scene, bank, np.random.RandomState(SEED + 7))
+    t_bad = rb["t"] + torch.tensor([0.0, 0.0, REFINE_OFFSET_M], device="cuda")
+    args = (rb["R"], t_bad, rb["mask"], rb["xyz"], rb["depth"], rb["K"], rb["centers"],
+            rb["scales"], rb["verts"], rb["faces"], rb["extents"])
+    with torch.inference_mode():
+        t_k = depth_refine_batch(*args, iters=2, out_res=rb["out_res"])
+        t_p = depth_refine_batch(*args, iters=2, out_res=rb["out_res"],
+                                 render=render_depth_xyz_batch)
+    torch.cuda.synchronize()
+    z_err = (t_k[:, 2] - rb["t"][:, 2]).abs()
+    worst_z = float(z_err.max())
+    check(worst_z < 0.3 * REFINE_OFFSET_M,
+          f"depth refine left a z error of {worst_z} m from a {REFINE_OFFSET_M} m offset")
+    dt = float((t_k - t_p).abs().max())
+    check(dt <= REFINE_T_TOL, f"refined t, B2 vs plain rasterizer: {dt} m")
+    log(f"[6/7] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
+        f"in z, 2 iterations: z error max {worst_z * 1e3:.3f} mm, mean "
+        f"{float(z_err.mean()) * 1e3:.3f} mm (limit {0.3 * REFINE_OFFSET_M * 1e3:.1f} mm); "
+        f"B2 vs plain rasterizer max |dt| = {dt:.3g} m  [{card}]")
+
+
+def _parity(cfg, batch, tag):
+    from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
+    from gdrnpp_bop2022_torch.utils.weights import seeded_state_dict
     outs = {}
     for device in ("cuda", "cpu"):
         m = build_gdrn(cfg, device=device)
@@ -270,9 +714,25 @@ def phase_parity(rb):
         errs[k] = d
         tol = PARITY_ROT_TOL if k == "rot" else PARITY_REL_TOL * scale
         check(torch.isfinite(gpu[k]).all() and d <= tol,
-              f"card vs CPU {k}: max abs diff {d} > {tol}")
-    log("[4/4] fp32 flagship, 2 ROIs, card (B1 kernel) vs CPU (plain), TF32 "
+              f"{tag} card vs CPU {k}: max abs diff {d} > {tol}")
+    log(f"[7/7] fp32 {tag}, 2 ROIs, card (B1 kernel) vs CPU (plain), TF32 "
         "off: max abs diff " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
+
+
+def phase_parity(rb, rb_rgbd):
+    """The flagship RGB and RGB-D models in fp32 on the card (kernels) and on
+    the CPU (plain path)."""
+    from gdrnpp_bop2022_torch.config import Config, replace_cfg
+    from gdrnpp_bop2022_torch.configs import ycbv_convnext_base_rgbd
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = {"model.compute_dtype": "float32"}
+    for cfg, batch, tag in ((replace_cfg(Config(), f32), rb, "RGB flagship"),
+                            (replace_cfg(ycbv_convnext_base_rgbd(), f32), rb_rgbd,
+                             "RGB-D flagship")):
+        _parity(cfg, {k: v[:2].float() if v.is_floating_point() else v[:2]
+                      for k, v in batch.items()}, tag)
 
 
 def main():
@@ -281,20 +741,43 @@ def main():
               file=sys.stderr)
         return 1
     import gdrnpp_bop2022_torch  # noqa: F401  (fails here outside a checkout)
+    from gdrnpp_bop2022_torch.bop.models3d import ModelBank
     torch.manual_seed(SEED)
+    t_start = time.perf_counter()
     name, card = phase_device()
     ln = phase_kernels(card)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, rb = phase_slice(card, tmp)
-    phase_parity(rb)
-    jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
-    check(not jax_mods, f"the port imported {jax_mods[:3]}")
-    print(json.dumps({"kernels": [{
-        "name": "layer_norm", "route": "cuda",
-        "source": "gdrnpp_bop2022_torch/csrc/layer_norm.cu",
-        "replaces": "gdrnpp_bop2022_tpu/ops/pallas_ln.py:26",
-        "launches": launches, "max_abs_err": ln["max_abs_err"],
-        "ms": ln["ms"], "plain_ms": ln["plain_ms"]}]}))
+        t0 = time.perf_counter()
+        scene = make_rgbd_scene(os.path.join(tmp, "rgbd"), np.random.RandomState(SEED + 2))
+        bank = ModelBank.from_bop_models_dir(scene["models_dir"])
+        check(bank.faces.shape == (21, 4096, 3), f"bank faces {bank.faces.shape}")
+        log(f"[3/7] RGB-D scene and model bank written and loaded in "
+            f"{time.perf_counter() - t0:.1f} s (analytic depth, no rendering)")
+        b2 = phase_raster(card, scene, bank)
+        rb = phase_slice(card, os.path.join(tmp, "rgb"))
+        ln_launches, r_launches, rb_rgbd, times = phase_rgbd_slice(card, scene, bank, tmp)
+        phase_refine(card, scene, bank)
+    share = 100.0 * 2 * b2["ms"] / times["p50_ms"]
+    log(f"[5/7] B2 share of an RGB-D batch: 2 launches x {b2['ms']:.4f} ms of a "
+        f"{times['p50_ms']:.2f} ms p50 batch = {share:.2f}%  [{card}]")
+    phase_parity(rb, rb_rgbd)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "gdrnpp_bop2022_tpu"))
+    check(not bad, f"the port imported {bad[:3]}")
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [
+        {"name": "layer_norm", "route": "cuda",
+         "source": "gdrnpp_bop2022_torch/csrc/layer_norm.cu",
+         "replaces": "gdrnpp_bop2022_tpu/ops/pallas_ln.py:26",
+         "launches": ln_launches, "max_abs_err": ln["max_abs_err"], "ms": ln["ms"],
+         "plain_ms": ln["plain_ms"], "bound_ms": ln["bound_ms"],
+         "bound_by": ln["bound_by"], "library_ms": ln["library_ms"]},
+        {"name": "render_depth_xyz", "route": "cuda",
+         "source": "gdrnpp_bop2022_torch/csrc/raster.cu",
+         "replaces": "gdrnpp_bop2022_tpu/ops/pallas_raster.py:53",
+         "launches": r_launches, "max_abs_err": b2["max_abs_err"], "ms": b2["ms"],
+         "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"],
+         "bound_by": b2["bound_by"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

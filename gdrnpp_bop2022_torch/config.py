@@ -1,9 +1,425 @@
-"""The config dataclasses, shared with the JAX package.
+"""Config system: typed dataclasses + dict overrides.
 
-``gdrnpp_bop2022_tpu.config`` imports nothing but the standard library, so
-both packages read one definition of ``Config()`` and its overrides.
+The port's own copy of ``gdrnpp_bop2022_tpu/config.py`` (standard library
+only, kept verbatim so both packages read the same ``Config()``;
+``tests/test_torch_config.py`` holds the two equal field by field). Some
+field comments describe the JAX package's TPU lowerings (``dw_mode``,
+``int8_mlp``, ``remat``); the port reads only the fields its modules use.
+
+Overrides: ``cfg = replace_cfg(cfg, {"solver.lr": 1e-3})`` or CLI-style
+``--opts solver.lr=1e-3``.
 """
 
-from gdrnpp_bop2022_tpu.config import *  # noqa: F401,F403
-from gdrnpp_bop2022_tpu.config import (Config, PoseNetConfig,  # noqa: F401
-                                       parse_opts, replace_cfg)
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Sequence, Tuple
+
+
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class BackboneConfig:
+    """Backbone selection (reference: net_factory.py BACKBONES registry)."""
+    name: str = "convnext_base"       # convnext_{tiny,small,base}, resnet{34,50}, cspdarknet
+    out_index: int = 3                # which stage's features feed the geo head
+    pretrained: str = ""              # path to a converted checkpoint ("" = random init)
+    freeze: bool = False
+    in_channels: int = 3              # 6 for RGB-D concat variants
+    gelu_exact: bool = False          # erf GELU (torch parity); tanh approx
+                                      # is 1.9x faster on TPU, default
+    dw_mode: str = "auto"             # depthwise-conv lowering (convnext):
+                                      # auto = MXU scatter-matmul when
+                                      # H*W <= 256 (4.25x measured), conv =
+                                      # always XLA VPU conv, mxu = force
+    remat: bool = False               # rematerialize backbone blocks in the
+                                      # backward pass (frees activation HBM
+                                      # for bigger train batches; forward
+                                      # inference unaffected)
+    int8_mlp: bool = False            # serving: pointwise MLPs as dynamic
+                                      # int8 matmuls on the MXU's 2x-rate
+                                      # int8 pipe (convnext only)
+
+
+@dataclass(frozen=True)
+class GeoHeadConfig:
+    """Top-down geometric decoder (reference: top_down_doublemask_xyz_region_head.py)."""
+    name: str = "top_down_doublemask_xyz_region"
+    lr_mult: float = 1.0              # per-module LR (reference LR_MULT,
+                                      # model_utils.py:166)
+    up_types: Tuple[str, ...] = ("deconv", "bilinear", "bilinear")
+    deconv_kernel_size: int = 3
+    num_conv_per_block: int = 2
+    feat_dim: int = 256
+    feat_kernel_size: int = 3
+    norm: str = "GN"
+    num_gn_groups: int = 32
+    act: str = "gelu"
+    out_kernel_size: int = 1
+    num_regions: int = 64
+    xyz_num_bins: int = 64            # used when xyz_loss_type == "CE_coor"
+    xyz_class_aware: bool = True
+    mask_class_aware: bool = True
+    region_class_aware: bool = True
+    freeze: bool = False
+
+
+@dataclass(frozen=True)
+class PnPNetConfig:
+    """Patch-PnP head (reference: conv_pnp_net.py)."""
+    name: str = "conv_pnp_net"
+    lr_mult: float = 1.0              # per-module LR (reference LR_MULT,
+                                      # model_utils.py:271)
+    featdim: int = 128
+    num_stride2_layers: int = 3
+    num_extra_layers: int = 0
+    norm: str = "GN"
+    num_gn_groups: int = 32
+    act: str = "gelu"
+    drop_prob: float = 0.0
+    dropblock_size: int = 5
+    flat_op: str = "flatten"
+    denormalize_by_extent: bool = True
+    region_attention: bool = True
+    mask_attention: str = "none"      # none | mul | concat
+    with_2d_coord: bool = True
+    coord_2d_type: str = "abs"        # abs | rel
+    rot_type: str = "allo_rot6d"      # {allo,ego}_{rot6d,quat}
+    trans_type: str = "centroid_z"    # centroid_z | centroid_z_abs | trans
+    z_type: str = "REL"               # REL | ABS
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Loss weights/types (reference: GDRN_double_mask.py gdrn_loss + configs)."""
+    xyz_loss_type: str = "L1"         # L1 | CE_coor
+    xyz_loss_mask_gt: str = "visib"   # trunc | visib | obj
+    xyz_lw: float = 1.0
+    mask_loss_type: str = "L1"        # L1 | BCE | CE | dice | RW_BCE
+    mask_loss_gt: str = "trunc"
+    mask_lw: float = 1.0
+    full_mask_loss_type: str = "L1"
+    full_mask_lw: float = 1.0
+    region_loss_type: str = "CE"
+    region_loss_mask_gt: str = "visib"
+    region_lw: float = 1.0
+    # point-matching
+    pm_loss_type: str = "l1"
+    pm_smooth_l1_beta: float = 1.0
+    pm_norm_by_extent: bool = True
+    pm_loss_sym: bool = True
+    pm_r_only: bool = True
+    pm_disentangle_t: bool = False
+    pm_disentangle_z: bool = False
+    pm_t_use_points: bool = True
+    pm_lw: float = 1.0
+    rot_loss_type: str = "angular"
+    rot_lw: float = 0.0
+    centroid_loss_type: str = "L1"
+    centroid_lw: float = 1.0
+    z_loss_type: str = "L1"
+    z_lw: float = 1.0
+    trans_loss_type: str = "L1"
+    trans_loss_disentangle: bool = True
+    trans_lw: float = 0.0
+    bind_loss_type: str = "L1"
+    bind_lw: float = 0.0
+    use_mtl: bool = False             # learned task-uncertainty weighting
+
+
+@dataclass(frozen=True)
+class PoseNetConfig:
+    name: str = "gdrn_double_mask"
+    num_classes: int = 21
+    input_res: int = 256
+    output_res: int = 64
+    xyz_online: bool = True           # render XYZ GT on device during training
+    xyz_bp: bool = True
+    fuse_type: str = "cat"            # RGB-D dstream fusion: cat | conv
+    gt_max_faces: int = 1024          # mesh decimation budget for online GT
+                                      # rendering (64x64 crops; render time
+                                      # scales linearly with face count)
+    backbone: BackboneConfig = field(default_factory=BackboneConfig)
+    geo_head: GeoHeadConfig = field(default_factory=GeoHeadConfig)
+    pnp_net: PnPNetConfig = field(default_factory=PnPNetConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    pose_net: PoseNetConfig = field(default_factory=PoseNetConfig)
+    pixel_mean: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    pixel_std: Tuple[float, ...] = (255.0, 255.0, 255.0)
+    bbox_type: str = "AMODAL_CLIP"    # VISIB | AMODAL | AMODAL_CLIP
+    load_dets_test: bool = True
+    ema_enabled: bool = True
+    ema_decay: float = 0.9999
+    ema_warmup_updates: int = 2000
+    # compute dtype for the conv stack; params/optimizer stay fp32
+    compute_dtype: str = "bfloat16"
+
+
+# ---------------------------------------------------------------------------
+# input / augmentation
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ColorAugConfig:
+    """Declarative stochastic color aug pipeline (replaces the reference's
+    eval'd imgaug code strings, base_data_loader.py:273-284). Each op:
+    (name, probability, params)."""
+    prob: float = 0.8
+    # preset pipeline (reference aug_type switch): cosy+aae (BOP22 default)
+    # | aae | roi10d | ssd
+    aug_type: str = "cosy+aae"
+    ops: Tuple[Tuple[str, float, Tuple[float, ...]], ...] = (
+        ("coarse_dropout", 0.5, (0.2, 0.05)),       # p, size_percent
+        ("gaussian_blur", 0.4, (0.0, 3.0)),
+        ("sharpness", 0.3, (0.0, 50.0)),
+        ("contrast", 0.3, (0.2, 50.0)),
+        ("brightness", 0.5, (0.1, 6.0)),
+        ("color_enhance", 0.3, (0.0, 20.0)),
+        ("add", 0.5, (-25.0, 25.0)),
+        ("invert", 0.3, (0.2, 0.0)),
+        ("multiply", 0.5, (0.6, 1.4)),
+        ("linear_contrast", 0.5, (0.5, 2.2)),
+        ("grayscale", 0.5, (0.0, 1.0)),
+    )
+
+
+@dataclass(frozen=True)
+class InputConfig:
+    dzi_type: str = "uniform"         # uniform | truncnorm | none
+    dzi_pad_scale: float = 1.5
+    dzi_scale_ratio: float = 0.25
+    dzi_shift_ratio: float = 0.25
+    truncate_fg: bool = False
+    change_bg_prob: float = 0.5
+    bg_images_dir: str = ""           # VOC/COCO-style background image dir
+    color_aug: ColorAugConfig = field(default_factory=ColorAugConfig)
+    # RGB-D (reference: data_loader.py:152-159, :345-356, :409-431)
+    with_depth: bool = False
+    bp_depth: bool = True             # backproject depth -> cam-space XYZ (3ch)
+    depth_aug: bool = False           # reference INPUT.AUG_DEPTH
+    drop_depth_ratio: float = 0.2
+    drop_depth_prob: float = 0.5
+    add_noise_depth_level: float = 0.01
+    add_noise_depth_prob: float = 0.9
+
+
+# ---------------------------------------------------------------------------
+# solver / schedule
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SolverConfig:
+    optimizer: str = "ranger"         # ranger | adamw | sgd | adam | lamb | madgrad
+    base_lr: float = 8e-4
+    weight_decay: float = 0.01
+    momentum: float = 0.9
+    ims_per_batch: int = 48
+    total_epochs: int = 40
+    lr_scheduler: str = "flat_and_anneal"
+    anneal_method: str = "cosine"
+    anneal_point: float = 0.72
+    warmup_factor: float = 0.001
+    warmup_iters: int = 1000
+    warmup_method: str = "linear"
+    clip_grad_norm: float = 0.0       # 0 = disabled
+    grad_accum_steps: int = 1
+    checkpoint_period_epochs: int = 5
+    max_to_keep: int = 5
+    nan_grad_to_zero: bool = True
+
+
+# ---------------------------------------------------------------------------
+# datasets / eval / runtime
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class DatasetsConfig:
+    train: Tuple[str, ...] = ("ycbv_train_real", "ycbv_train_pbr")
+    train2: Tuple[str, ...] = ()
+    train2_ratio: float = 0.0
+    test: Tuple[str, ...] = ("ycbv_test",)
+    det_files_test: Tuple[str, ...] = ()
+    det_topk_per_obj: int = 1
+    det_thr: float = 0.0
+    sym_objs: Tuple[str, ...] = ()
+    root: str = "datasets/BOP_DATASETS"
+    filter_visib_thr: float = 0.3
+    sampler: str = "random"           # random | repeat_factor (reference
+                                      # RepeatFactorTrainingSampler)
+    repeat_thresh: float = 0.01
+
+
+@dataclass(frozen=True)
+class ValConfig:
+    dataset_name: str = "ycbv"
+    error_types: str = "vsd,mspd,mssd"
+    targets_filename: str = "test_targets_bop19.json"
+    n_top: int = -1                   # -1: use targets' inst_count
+    use_depth_refine: bool = False
+    depth_refine_iters: int = 2
+    depth_refine_threshold: float = 0.8
+    use_pnp: bool = False
+    pnp_type: str = "ransac_pnp"      # ransac_pnp | net_iter_pnp | uncertainty_pnp
+    eval_precision: bool = False
+    save_results_only: bool = False
+    vsd_mode: str = "full"            # full | auto | window (eval/vsd.py).
+                                      # full = strict toolkit equivalence,
+                                      # the default; window is a measured
+                                      # approximation (PARITY.md) for fast
+                                      # sweeps, auto guards clipping only
+
+
+@dataclass(frozen=True)
+class TrainRuntimeConfig:
+    mesh_shape: Tuple[int, ...] = (-1,)   # -1: all devices, 1-D data mesh
+    mesh_axes: Tuple[str, ...] = ("data",)
+    seed: int = 0
+    log_period: int = 20
+    tensorboard: bool = True          # scalars to a native tfevents file
+    eval_period: int = 0
+    vis_period: int = 0
+    num_workers: int = -1             # decode threads inside the loader;
+                                      # -1 = auto (os.cpu_count(); 1 CPU ->
+                                      # no pool — a thread pool on a 1-core
+                                      # host is a measured 4x pessimization)
+    num_builders: int = 1             # parallel whole-batch builders (>1:
+                                      # queue order may interleave)
+    cache_gb: float = 16.0            # host-RAM decoded-image LRU budget
+    # device-resident frame pools (datasets/device_pool.py): decoded frames
+    # live in HBM across steps; the host uploads only misses + indices.
+    # 0 disables (stacked host batches). 512 VGA rgb frames ~ 0.44 GB;
+    # masks are uint8 (0.3 MB each), depth float32 (1.2 MB each).
+    device_pool_frames: int = 0       # rgb pool capacity (frames)
+    device_pool_mask_frames: int = 0  # 0 -> 2x device_pool_frames
+    device_pool_bg_frames: int = 256  # bg pool (only if bg replacement on)
+
+
+@dataclass(frozen=True)
+class Config:
+    output_dir: str = "output/gdrn/default"
+    exp_name: str = "gdrn"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    input: InputConfig = field(default_factory=InputConfig)
+    solver: SolverConfig = field(default_factory=SolverConfig)
+    datasets: DatasetsConfig = field(default_factory=DatasetsConfig)
+    val: ValConfig = field(default_factory=ValConfig)
+    train: TrainRuntimeConfig = field(default_factory=TrainRuntimeConfig)
+
+
+# ---------------------------------------------------------------------------
+# override machinery
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class YoloxAugConfig:
+    """Mosaic/mixup geometry + color aug (reference MosaicDetection knobs,
+    configs/yolox/bop_pbr/yolox_base.py:149-173)."""
+    mosaic_prob: float = 1.0
+    mixup_prob: float = 1.0
+    hsv_prob: float = 1.0
+    flip_prob: float = 0.5
+    degrees: float = 10.0
+    translate: float = 0.1
+    mosaic_scale: Tuple[float, float] = (0.1, 2.0)
+    mixup_scale: Tuple[float, float] = (0.5, 1.5)
+    shear: float = 2.0
+
+
+@dataclass(frozen=True)
+class YoloxTestConfig:
+    """Detector eval knobs (reference test dict, yolox_base.py:185-200 +
+    per-dataset tta overrides)."""
+    conf_thr: float = 0.01
+    nms_thr: float = 0.65
+    tta: bool = True
+    tta_scales: Tuple[float, ...] = (1.0, 0.75, 0.83, 1.12, 1.25)
+    conf_thr_tta: float = 0.001
+    precise_bn_iters: int = 0
+
+
+@dataclass(frozen=True)
+class YoloxConfig:
+    """One BOP'22 detector recipe as a config artifact (VERDICT r3 missing
+    #2). Mirrors the reference's per-dataset recipe files
+    (configs/yolox/bop_pbr/yolox_x_640_augCozyAAEhsv_ranger_30_epochs_*.py:
+    yolox-x 640², Ranger lr 1e-3@bs64 wd 0, 30 epochs, no-aug last 15,
+    bs 32, mosaic scale (0.1,2), mixup scale (0.5,1.5), EMA, multiscale
+    (14,26)x32). Epoch-based knobs are converted to iters at launch from
+    the indexed record count (tools/train_yolox.py)."""
+    dataset: str = "ycbv"
+    train_splits: Tuple[str, ...] = ("train_pbr",)
+    output_dir: str = ""              # default: output/yolox/<dataset>
+    size: str = "yolox_x"
+    input_size: int = 640
+    num_classes: int = -1             # -1: from the dataset meta
+    norm: str = "GN"                  # BN for released-weights parity
+    batch_size: int = 32
+    total_epochs: int = 30
+    no_aug_epochs: int = 15
+    warmup_epochs: int = 5
+    optimizer: str = "ranger"
+    basic_lr_per_img: float = 0.001 / 64.0
+    weight_decay: float = 0.0
+    grad_clip: float = 35.0
+    ema_decay: float = 0.9998
+    # random square train size in [lo, hi]*32 every `multiscale_period`
+    # iters (reference train.random_size=(14, 26), yolox_base.py:72)
+    random_size: Tuple[int, int] = (14, 26)
+    multiscale_period: int = 10
+    seed: int = 0
+    ckpt_period_epochs: int = 2
+    eval_period_epochs: int = -1      # -1: only at end
+    aug: YoloxAugConfig = field(default_factory=YoloxAugConfig)
+    test: YoloxTestConfig = field(default_factory=YoloxTestConfig)
+
+
+def _replace_path(obj: Any, path: Sequence[str], value: Any) -> Any:
+    if len(path) == 1:
+        fields = {f.name: f for f in dataclasses.fields(obj)}
+        name = path[0]
+        if name not in fields:
+            raise KeyError(f"{type(obj).__name__} has no field '{name}'")
+        cur = getattr(obj, name)
+        if dataclasses.is_dataclass(cur) and isinstance(value, dict):
+            value = replace_cfg(cur, value)
+        elif isinstance(cur, tuple) and isinstance(value, (list, tuple)):
+            value = tuple(value)
+        elif cur is not None and not dataclasses.is_dataclass(cur) and value is not None:
+            value = type(cur)(value) if not isinstance(value, type(cur)) else value
+        return dataclasses.replace(obj, **{name: value})
+    child = getattr(obj, path[0])
+    return dataclasses.replace(obj, **{path[0]: _replace_path(child, path[1:], value)})
+
+
+def replace_cfg(cfg: Any, overrides: dict) -> Any:
+    """Apply {"dotted.path": value} or nested-dict overrides to a config."""
+    for key, value in overrides.items():
+        if isinstance(value, dict) and "." not in key and dataclasses.is_dataclass(getattr(cfg, key, None)):
+            cfg = dataclasses.replace(cfg, **{key: replace_cfg(getattr(cfg, key), value)})
+        else:
+            cfg = _replace_path(cfg, key.split("."), value)
+    return cfg
+
+
+def parse_opts(opts: Sequence[str]) -> dict:
+    """Parse CLI ``key=value`` overrides (values parsed as python literals)."""
+    import ast
+    out = {}
+    for opt in opts:
+        key, _, raw = opt.partition("=")
+        try:
+            out[key] = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            out[key] = raw
+    return out
+
+
+def iters_per_epoch(cfg: Config, num_train_samples: int) -> int:
+    return max(1, num_train_samples // cfg.solver.ims_per_batch)

@@ -2,8 +2,9 @@
 
 Port of the test-time part of ``gdrnpp_bop2022_tpu/engine/batching.py``
 (``roi_coord_2d_from_grid``, ``roi_coord_2d_rel_from_grid``,
-``compute_test_rois``, ``build_test_batch``). The unique full images of a
-batch go to the device once; each ROI samples its image by index.
+``compute_test_rois``, ``build_test_batch``, ``build_depth_rois``). The
+unique full images of a batch go to the device once; each ROI samples its
+image by index.
 
 Conventions (as in the reference):
   * scale = max(bw, bh) * dzi_pad_scale, clipped to max(im_H, im_W);
@@ -11,8 +12,7 @@ Conventions (as in the reference):
   * roi_coord_2d is the [0, 1)-normalised full-image coordinate of each
     output pixel;
   * roi_cams stay the FULL-IMAGE intrinsics.
-The training-time builders (online ground truth, depth ROIs) arrive with
-later slices.
+The training-time builder (online ground truth) arrives with training.
 """
 
 from __future__ import annotations
@@ -83,3 +83,31 @@ def build_test_batch(images, img_idx, boxes_xyxy, Ks, labels, extents,
         "roi_extents": extents.float()[labels.long()],
         "resize_ratios": output_res / scales,
     }
+
+
+def build_depth_rois(depths, img_idx, centers, scales, Ks, input_res: int = 256,
+                     bp_depth: bool = True) -> torch.Tensor:
+    """Backprojected depth ROIs for the RGB-D dual-stream model.
+
+    depths (M, H, W) full-image depth in meters, img_idx (B,), centers
+    (B, 2), scales (B,), Ks (B, 3, 3) full-image intrinsics. The depth is
+    nearest-cropped per ROI and backprojected with the full-image K at the
+    ROUNDED source pixel, which equals backproject-then-nearest-crop
+    without a (M, H, W, 3) map. Returns (B, R, R, 3) camera-space XYZ in
+    meters when bp_depth, else (B, R, R, 1) raw depth.
+    """
+    d = roi_crop_resize(depths[..., None], centers, scales, input_res,
+                        method="nearest", img_idx=img_idx)[..., 0]    # (B, R, R)
+    if not bp_depth:
+        return d[..., None]
+    grid = affine_grid_from_boxes(centers.float(), scales.float(), input_res)
+    xs = torch.round(grid[..., 0])      # the pixel the nearest sampler took
+    ys = torch.round(grid[..., 1])
+    Ks = Ks.float()
+    fx = Ks[:, 0, 0][:, None, None]
+    fy = Ks[:, 1, 1][:, None, None]
+    cx = Ks[:, 0, 2][:, None, None]
+    cy = Ks[:, 1, 2][:, None, None]
+    X = (xs - cx) / fx * d
+    Y = (ys - cy) / fy * d
+    return torch.stack([X, Y, d], dim=-1)

@@ -1,8 +1,10 @@
 """Inference driver: detections -> poses -> BOP CSV rows.
 
 Port of ``gdrnpp_bop2022_tpu/engine/inference.py`` for ``post_mode="direct"``
-(the pose straight from the network). The PnP and depth-refine modes
-arrive with slice 2 (scoring and post-processing) and raise here.
+(the pose straight from the network) and ``post_mode="depth_refine"`` (the
+translation refined against the sensor depth through kernel B2), for the
+RGB model and the RGB-D dual-stream model (``with_depth_input``). The PnP
+modes arrive with ``ops/pnp.py`` and raise here.
 
 Timing keeps the reference's BOP semantics (gdrn_evaluator.py:598-610):
 per-instance time = detector time + GDRN compute, then normalised per
@@ -22,8 +24,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..eval.pnp_eval import depth_refine_batch
 from ..models.gdrn import get_mask_prob
-from .batching import build_test_batch
+from ..ops.crop import roi_crop_resize
+from .batching import build_depth_rois, build_test_batch
 
 
 def decode_dense_outputs(out: dict, mask_loss_type: str = "L1"):
@@ -59,7 +63,13 @@ def run_gdrn_inference(
     output_res: int = 64,
     pixel_mean=(0.0, 0.0, 0.0),
     pixel_std=(255.0, 255.0, 255.0),
-    post_mode: str = "direct",
+    post_mode: str = "direct",      # direct | depth_refine
+    model_bank=None,                # ModelBank (verts, faces), for depth_refine
+    depth_refine_iters: int = 2,
+    depth_refine_threshold: float = 0.8,
+    mask_loss_type: str = "L1",
+    with_depth_input: bool = False,  # RGB-D dual-stream model: feed roi_depth
+    bp_depth: bool = True,
     stats: Optional[dict] = None,   # out-param: serving stats
     pipeline_depth: int = 1,        # >1: keep this many batches in flight
     coord_2d_type: str = "abs",
@@ -71,14 +81,28 @@ def run_gdrn_inference(
     on its own and stamps its rows with it; pipeline_depth > 1 launches
     batches without waiting, so the host loads batch k+1 while the device
     runs batch k, and rows carry the amortised wall-clock per ROI.
+
+    With ``with_depth_input`` or ``post_mode="depth_refine"`` the batches
+    carry "depths" (M, H, W) in meters. The dual-stream model gets the
+    backprojected depth ROI at input_res; depth refinement crops the sensor
+    depth at output_res (nearest) and renders the label's mesh from the
+    bank ``depth_refine_iters`` times per batch.
     """
-    if post_mode != "direct":
+    if post_mode not in ("direct", "depth_refine"):
         raise NotImplementedError(
-            f"post_mode={post_mode!r} arrives with slice 2 (scoring and "
-            f"post-processing); the port serves post_mode='direct'")
+            f"post_mode={post_mode!r} arrives later in slice 2, with the PnP "
+            f"port (ops/pnp.py); "
+            f"the port serves post_mode='direct' and 'depth_refine'")
     device = next(model.parameters()).device
     extents = torch.as_tensor(np.asarray(extents_bank), dtype=torch.float32,
                               device=device)
+    if post_mode == "depth_refine":
+        if model_bank is None:
+            raise ValueError("post_mode='depth_refine' needs the model bank")
+        bank_verts = torch.as_tensor(np.asarray(model_bank.verts), dtype=torch.float32,
+                                     device=device)
+        bank_faces = torch.as_tensor(np.asarray(model_bank.faces), dtype=torch.int32,
+                                     device=device)
     model.eval()
 
     @torch.inference_mode()
@@ -86,14 +110,37 @@ def run_gdrn_inference(
         """One device pass: ROI prep + forward. Returns device tensors,
         possibly still being computed."""
         put = lambda a: torch.as_tensor(a).to(device, non_blocking=True)
+        img_idx, Ks, labels = put(batch["img_idx"]), put(batch["Ks"]), put(batch["labels"])
         rb = build_test_batch(
-            put(batch["images"]), put(batch["img_idx"]),
-            put(batch["boxes_xyxy"]), put(batch["Ks"]), put(batch["labels"]),
+            put(batch["images"]), img_idx, put(batch["boxes_xyxy"]), Ks, labels,
             extents, input_res=input_res, output_res=output_res,
             pixel_mean=tuple(pixel_mean), pixel_std=tuple(pixel_std),
             coord_2d_type=coord_2d_type)
+        scales = output_res / rb["resize_ratios"]
+        depths = None
+        if with_depth_input or post_mode == "depth_refine":
+            if "depths" not in batch:
+                raise ValueError("RGB-D inference needs batches with 'depths' "
+                                 "(iter_test_batches(with_depth=True))")
+            depths = put(batch["depths"])
+        if with_depth_input:
+            rb["roi_depth"] = build_depth_rois(depths, img_idx, rb["roi_centers"],
+                                               scales, Ks, input_res=input_res,
+                                               bp_depth=bp_depth)
         out = model(**rb)
-        return out["rot"], out["trans"]
+        rot, trans = out["rot"], out["trans"]
+        if post_mode == "depth_refine":
+            xyz, mask_prob = decode_dense_outputs(out, mask_loss_type)
+            d_crop = roi_crop_resize(depths[..., None], rb["roi_centers"], scales,
+                                     output_res, method="nearest",
+                                     img_idx=img_idx)[..., 0]
+            lab = labels.long()
+            trans = depth_refine_batch(
+                rot, trans, mask_prob, xyz, d_crop, Ks.float(), rb["roi_centers"],
+                scales, bank_verts[lab], bank_faces[lab], rb["roi_extents"],
+                iters=depth_refine_iters, threshold=depth_refine_threshold,
+                out_res=output_res)
+        return rot, trans
 
     def fetch(rot, trans):
         _sync(device)

@@ -1,9 +1,12 @@
 """GDRN assembly: ConvNeXt -> double-mask geo head -> ConvPnPNet -> pose decode.
 
-Port of ``gdrnpp_bop2022_tpu/models/gdrn.py`` for the served configuration:
+Port of ``gdrnpp_bop2022_tpu/models/gdrn.py`` for the served configurations:
 a convnext_{tiny,small,base} backbone, ``top_down_doublemask_xyz_region``
-head and ``conv_pnp_net``. The other backbones, heads and PnP nets, the
-RGB-D stream and cls2reg arrive in later slices and raise here.
+head and ``conv_pnp_net``, as RGB (``gdrn_double_mask``) or RGB-D
+(``gdrn_dstream_double_mask``: a second ConvNeXt, ``depth_backbone``, over
+the backprojected depth ROI, fused by channel concat or sum). The other
+backbones, heads and PnP nets, ConvFuseNet and cls2reg arrive in later
+slices and raise here.
 
 The public interface keeps the JAX package's layout: ``forward`` takes the
 batch dict of ``engine.batching.build_test_batch`` (roi_img (B, H, W, 3),
@@ -72,12 +75,15 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 class GDRN(nn.Module):
     """Geometry-guided direct regression network (double-mask variant).
 
-    forward returns: rot (B,3,3) egocentric, trans (B,3), rot_allo,
-    centroid_rel (B,2), z_rel (B,), vis_mask / full_mask (B,H,W) raw,
-    coor_x/y/z (B,H,W,D), region (B,H,W,R+1) raw logits; all fp32.
+    forward also takes roi_depth (B,H,W,3|1) for the dual-stream model
+    (``engine.batching.build_depth_rois``) and returns: rot (B,3,3)
+    egocentric, trans (B,3), rot_allo, centroid_rel (B,2), z_rel (B,),
+    vis_mask / full_mask (B,H,W) raw, coor_x/y/z (B,H,W,D), region
+    (B,H,W,R+1) raw logits; all fp32.
     """
 
-    def __init__(self, cfg: PoseNetConfig, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, cfg: PoseNetConfig, dtype: torch.dtype = torch.bfloat16,
+                 depth_in_chans: int = 3):
         super().__init__()
         self.cfg = cfg
         bb, gh, pn = cfg.backbone, cfg.geo_head, cfg.pnp_net
@@ -87,7 +93,11 @@ class GDRN(nn.Module):
             raise NotImplementedError(f"geo_head {gh.name!r} arrives with slice 5")
         if pn.name != "conv_pnp_net":
             raise NotImplementedError(f"pnp_net {pn.name!r} arrives with slice 5")
-        if "dstream" in cfg.name or "cls2reg" in cfg.name or cfg.loss.use_mtl:
+        dstream = "dstream" in cfg.name
+        if dstream and cfg.fuse_type not in ("cat", "add"):
+            raise NotImplementedError(f"fuse_type {cfg.fuse_type!r} (ConvFuseNet) "
+                                      "arrives with slice 5")
+        if "cls2reg" in cfg.name or cfg.loss.use_mtl:
             raise NotImplementedError(f"GDRN variant {cfg.name!r} "
                                       f"(use_mtl={cfg.loss.use_mtl}) arrives later")
         if bb.out_index != 3:
@@ -95,6 +105,13 @@ class GDRN(nn.Module):
         build, feat_dim = _BACKBONES[bb.name]
         self.backbone = build(out_indices=(3,), gelu_exact=bb.gelu_exact,
                               in_chans=bb.in_channels, dtype=dtype)
+        # RGB-D dual stream (reference GDRN_Dstream_double_mask.py:37): the
+        # same backbone over the depth ROI (3 channels backprojected, else 1)
+        self.depth_backbone = (build(out_indices=(3,), gelu_exact=bb.gelu_exact,
+                                     in_chans=depth_in_chans, dtype=dtype)
+                               if dstream else None)
+        if dstream and cfg.fuse_type == "cat":
+            feat_dim *= 2
         xyz_dim, mask_dim, region_dim = xyz_mask_region_out_dims(cfg)
         self._dims = (xyz_dim, mask_dim, region_dim)
         nc = cfg.num_classes
@@ -125,7 +142,7 @@ class GDRN(nn.Module):
             dtype=dtype)
 
     def forward(self, roi_img, roi_labels, roi_coord_2d, roi_cams, roi_centers,
-                roi_whs, roi_extents, resize_ratios) -> dict:
+                roi_whs, roi_extents, resize_ratios, roi_depth=None) -> dict:
         pc, pn = self.cfg, self.cfg.pnp_net
         xyz_dim, mask_dim, region_dim = self._dims
         if roi_img.shape[-1] != pc.backbone.in_channels:
@@ -133,6 +150,12 @@ class GDRN(nn.Module):
                              f"backbone.in_channels={pc.backbone.in_channels}")
         # (B, H, W, 3) contiguous -> NCHW view in channels_last memory
         feat = self.backbone(roi_img.permute(0, 3, 1, 2))
+        if self.depth_backbone is not None:
+            if roi_depth is None:
+                raise ValueError("the dstream model needs roi_depth")
+            dfeat = self.depth_backbone(roi_depth.permute(0, 3, 1, 2))
+            feat = (feat + dfeat if pc.fuse_type == "add"
+                    else torch.cat([feat, dfeat], dim=1))
         geo = self.geo_head_net(feat, labels=roi_labels)
         coor_x, coor_y, coor_z = geo["coor_x"], geo["coor_y"], geo["coor_z"]
         region = geo["region"]
@@ -194,9 +217,11 @@ class GDRN(nn.Module):
         }
 
 
-def build_gdrn(cfg: Config, device=None) -> GDRN:
-    """GDRN for ``cfg`` in ``cfg.model.compute_dtype``, in eval mode."""
-    model = GDRN(cfg.model.pose_net, dtype=_DTYPES[cfg.model.compute_dtype])
+def build_gdrn(cfg: Config, device="cuda") -> GDRN:
+    """GDRN for ``cfg`` in ``cfg.model.compute_dtype``, in eval mode, on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    model = GDRN(cfg.model.pose_net, dtype=_DTYPES[cfg.model.compute_dtype],
+                 depth_in_chans=3 if cfg.input.bp_depth else 1)
     return model.to(device).eval()
 
 

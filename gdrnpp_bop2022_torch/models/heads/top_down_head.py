@@ -21,8 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from gdrnpp_bop2022_tpu.utils.torch_port import geo_out_channel_perm
-
+from ...utils.channel_perm import geo_out_channel_perm
 from ..layers import Act, ConvModule, GroupNorm32, Upsample2x
 
 

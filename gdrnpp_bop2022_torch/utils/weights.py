@@ -17,11 +17,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-from gdrnpp_bop2022_tpu.utils.torch_port import geo_out_channel_perm
-
 from ..config import Config
 from ..models.gdrn import xyz_mask_region_out_dims
 from ..models.heads.conv_pnp_net import final_spatial
+from .channel_perm import geo_out_channel_perm
 
 _CONVNEXT_DEPTHS = {"convnext_tiny": (3, 3, 9, 3),
                     "convnext_small": (3, 3, 27, 3),
@@ -126,12 +125,15 @@ def state_dict_from_flax(params: dict, cfg: Config) -> Dict[str, torch.Tensor]:
     pc = cfg.model.pose_net
     if pc.backbone.name not in _CONVNEXT_DEPTHS:
         raise NotImplementedError(f"backbone {pc.backbone.name!r}")
+    depths = _CONVNEXT_DEPTHS[pc.backbone.name]
     parts = {
-        "backbone": _convnext(params["backbone"], _CONVNEXT_DEPTHS[pc.backbone.name]),
+        "backbone": _convnext(params["backbone"], depths),
         "geo_head_net": _geo_head(params["geo_head"], pc.geo_head,
                                   xyz_mask_region_out_dims(pc), pc.num_classes),
         "pnp_net": _pnp_net(params["pnp_net"], pc.pnp_net, pc.output_res),
     }
+    if "depth_backbone" in params:          # the RGB-D dual-stream variant
+        parts["depth_backbone"] = _convnext(params["depth_backbone"], depths)
     return {f"{prefix}.{k}": torch.from_numpy(np.ascontiguousarray(v, np.float32))
             for prefix, sd in parts.items() for k, v in sd.items()}
 

@@ -103,7 +103,7 @@ def test_flagship_names_follow_reference():
 
 def test_seeded_state_dict_is_deterministic_and_loads():
     cfg = tiny_cfg()
-    m = build_gdrn(cfg)
+    m = build_gdrn(cfg, device="cpu")
     a, b = seeded_state_dict(m, 5), seeded_state_dict(m, 5)
     assert all(torch.equal(a[k], b[k]) for k in a)
     m.load_state_dict(a, strict=True)
@@ -114,7 +114,7 @@ def test_bf16_forward_keeps_fp32_islands():
     """bf16 compute: the dense outputs (fp32 out conv) and the pose decode
     stay fp32 and finite."""
     cfg = tiny_cfg(**{"model.compute_dtype": "bfloat16"})
-    m = build_gdrn(cfg)
+    m = build_gdrn(cfg, device="cpu")
     m.load_state_dict(seeded_state_dict(m, 0))
     with torch.no_grad():
         out = m(**to_torch(roi_batch(cfg, B=2)))
@@ -132,4 +132,84 @@ def test_unported_variants_raise():
                  {"model.pose_net.geo_head.name": "conv_mask_xyz_region"},
                  {"model.pose_net.pnp_net.name": "conv_pnp_net_cls"}):
         with pytest.raises(NotImplementedError):
-            build_gdrn(replace_cfg(tiny_cfg(), over))
+            build_gdrn(replace_cfg(tiny_cfg(), over), device="cpu")
+
+
+_DSTREAM = {"model.pose_net.name": "gdrn_dstream_double_mask"}
+
+
+@pytest.mark.parametrize("fuse_type", ["cat", "add"])
+def test_dstream_gdrn_matches_jax(fuse_type):
+    """RGB-D dual stream (second convnext_tiny over a backprojected depth
+    ROI), fused by concat or sum: same outputs as the JAX model, at the
+    tolerance of the RGB model above."""
+    cfg = tiny_cfg(**_DSTREAM, **{"model.pose_net.fuse_type": fuse_type})
+    jm, params = jax_gdrn_params(cfg, seed=4)
+    assert "depth_backbone" in params
+    port = port_gdrn(cfg, params)
+    assert port.depth_backbone is not None
+    b = roi_batch(cfg, B=2, seed=5)
+    rs = np.random.RandomState(6)
+    b["roi_depth"] = np.concatenate([rs.uniform(-0.2, 0.2, (2, 64, 64, 2)),
+                                     rs.uniform(0.4, 1.2, (2, 64, 64, 1))],
+                                    -1).astype(np.float32)
+    want = jm.apply({"params": params}, **{k: jnp.asarray(v) for k, v in b.items()})
+    with torch.no_grad():
+        got = port(**to_torch(b))
+    for k in _KEYS:
+        w = np.asarray(want[k])
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * max(np.abs(w).max(), 1.0), err_msg=k)
+    with pytest.raises(ValueError, match="roi_depth"):
+        port(**to_torch({k: v for k, v in b.items() if k != "roi_depth"}))
+
+
+def test_dstream_bridge_is_inverse_of_convert_gdrn_checkpoint():
+    cfg = tiny_cfg(**_DSTREAM)
+    _, params = jax_gdrn_params(cfg, seed=7)
+    sd = state_dict_from_flax(params, cfg)
+    assert any(k.startswith("depth_backbone.stem.0") for k in sd)
+    back = convert_gdrn_checkpoint({k: v.numpy() for k, v in sd.items()},
+                                   params, **_bridge_kwargs(cfg))
+    flat_b = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+        assert np.array_equal(np.asarray(flat_b[path]), leaf), path
+
+
+def test_dstream_conv_fusion_raises():
+    cfg = tiny_cfg(**_DSTREAM, **{"model.pose_net.fuse_type": "conv"})
+    with pytest.raises(NotImplementedError, match="ConvFuseNet"):
+        build_gdrn(cfg, device="cpu")
+
+
+def test_rgbd_flagship_has_two_backbones_of_40_layer_norms():
+    from gdrnpp_bop2022_torch.configs import ycbv_convnext_base_rgbd
+    from gdrnpp_bop2022_torch.models.backbones.convnext import LayerNorm2d
+    with torch.device("meta"):
+        model = GDRN(ycbv_convnext_base_rgbd().model.pose_net)
+    for bb in (model.backbone, model.depth_backbone):
+        assert sum(isinstance(m, LayerNorm2d) for m in bb.modules()) == 40
+    # cat fusion: the geo head reads 2 x 1024 channels
+    assert model.geo_head_net.features[0].weight.shape[0] == 2048
+
+
+@pytest.mark.parametrize("bp_depth", [True, False])
+def test_build_depth_rois_matches_jax(bp_depth):
+    from gdrnpp_bop2022_tpu.engine.batching import build_depth_rois as j_build
+    from gdrnpp_bop2022_torch.engine.batching import build_depth_rois
+    rs = np.random.RandomState(8)
+    depth = rs.uniform(0.3, 1.2, (3, 50, 70)).astype(np.float32)
+    depth[:, :6] = 0.0
+    img_idx = np.array([0, 2, 1, 2], np.int32)
+    centers = rs.uniform(10, 60, (4, 2)).astype(np.float32)
+    scales = rs.uniform(20, 90, 4).astype(np.float32)
+    Ks = np.tile(np.array([[120.0, 0.5, 35.0], [0, 118.0, 25.0], [0, 0, 1]],
+                          np.float32), (4, 1, 1))
+    want = np.asarray(j_build(jnp.asarray(depth), jnp.asarray(img_idx),
+                              jnp.asarray(centers), jnp.asarray(scales),
+                              jnp.asarray(Ks), input_res=24, bp_depth=bp_depth))
+    got = build_depth_rois(*(torch.from_numpy(a) for a in (depth, img_idx, centers,
+                                                            scales, Ks)),
+                           input_res=24, bp_depth=bp_depth)
+    assert got.shape == want.shape == (4, 24, 24, 3 if bp_depth else 1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)

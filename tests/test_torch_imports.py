@@ -1,8 +1,8 @@
-"""The port imports torch and never jax.
+"""The port imports torch and never jax, nor anything of the JAX package.
 
 A fresh interpreter imports every module of ``gdrnpp_bop2022_torch``;
-no ``jax``, ``jaxlib``, ``flax`` or ``optax`` module may appear in
-``sys.modules`` afterwards.
+no ``jax``, ``jaxlib``, ``flax``, ``optax`` or ``gdrnpp_bop2022_tpu``
+module may appear in ``sys.modules`` afterwards.
 """
 
 import json
@@ -17,7 +17,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "gdrnpp_bop2022_tpu"))
 print(json.dumps({"modules": names, "jax": bad}))
 """
 
@@ -35,5 +36,8 @@ def test_port_imports_no_jax():
               "models.heads.top_down_head", "models.heads.conv_pnp_net",
               "models.gdrn", "engine.batching", "engine.inference",
               "datasets.test_loader", "datasets.bop_data", "datasets.meta",
-              "bop.inout", "utils.weights", "utils.cuda_build", "config"):
+              "bop.inout", "utils.weights", "utils.cuda_build", "config",
+              "configs", "utils.channel_perm", "geometry.camera",
+              "geometry.symmetry", "bop.models3d", "ops.rasterizer", "ops.raster",
+              "eval.pnp_eval"):
         assert f"gdrnpp_bop2022_torch.{m}" in out["modules"], m

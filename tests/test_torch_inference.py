@@ -141,3 +141,68 @@ def test_decode_dense_outputs_matches_jax():
                 {k: torch.from_numpy(v) for k, v in out.items()}, mlt)
             np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=1e-6)
             np.testing.assert_allclose(mt.numpy(), np.asarray(mj), atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def rgbd_run(tmp_path_factory):
+    """The RGB-D slice through both packages: depth test batches, the
+    dual-stream model (cat fusion), depth refinement against the bank."""
+    from gdrnpp_bop2022_torch.bop.models3d import ModelBank
+    syn = build_synth_bop(tmp_path_factory.mktemp("bop_rgbd"), n_images=3, seed=5)
+    jmeta = syn["meta"]
+    tmeta = DatasetMeta(name=jmeta.name, id2obj=dict(jmeta.id2obj),
+                        width=jmeta.width, height=jmeta.height,
+                        camera_matrix=jmeta.camera_matrix)
+    cfg = tiny_cfg(**{"model.pose_net.num_classes": 2,
+                      "model.pose_net.name": "gdrn_dstream_double_mask"})
+    jm, params = jax_gdrn_params(cfg, seed=6)
+    port = port_gdrn(cfg, params)
+    bank = ModelBank.from_bop_models_dir(f"{syn['root']}/models", num_points=128,
+                                         num_fps=8)
+
+    def batches(bd, meta, it):
+        by_im = bd.make_records_by_image(bd.index_bop_split(syn["split_dir"], meta))
+        return list(it(by_im, bd.load_detections(syn["det_file"], meta),
+                       batch_size=4, with_depth=True))
+
+    kw = dict(input_res=64, output_res=16, with_depth_input=True)
+    refine = dict(post_mode="depth_refine", depth_refine_iters=2)
+    j_res = j_run(lambda p, b: jm.apply({"params": p}, **b), params,
+                  batches(jbd, jmeta, j_iter), bank.extents, model_bank=syn["bank"],
+                  **kw, **refine)
+    t_batches = batches(tbd, tmeta, iter_test_batches)
+    t_res = run_gdrn_inference(port, t_batches, bank.extents, model_bank=bank, **kw,
+                               **refine)
+    t_direct = run_gdrn_inference(port, t_batches, bank.extents, **kw)
+    return dict(j=j_res, t=t_res, direct=t_direct, port=port, batches=t_batches,
+                bank=bank, kw=kw)
+
+
+def test_rgbd_depth_refine_rows_match_jax(rgbd_run):
+    j_res, t_res = rgbd_run["j"], rgbd_run["t"]
+    assert len(t_res) == len(j_res) == 6
+    for a, b in zip(j_res, t_res):
+        assert (a["scene_id"], a["im_id"], a["obj_id"]) == (b["scene_id"], b["im_id"],
+                                                           b["obj_id"])
+        np.testing.assert_allclose(b["R"], a["R"], rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(b["t"], a["t"], rtol=1e-4, atol=1e-4)
+        assert np.isfinite(b["R"]).all() and np.isfinite(b["t"]).all()
+
+
+def test_rgbd_depth_refine_changes_only_t(rgbd_run):
+    moved = 0
+    for a, b in zip(rgbd_run["direct"], rgbd_run["t"]):
+        np.testing.assert_array_equal(a["R"], b["R"])
+        moved += int(np.abs(a["t"] - b["t"]).max() > 1e-6)
+    assert moved > 0
+
+
+def test_rgbd_inputs_are_checked(rgbd_run):
+    no_depth = [{k: v for k, v in b.items() if k != "depths"} for b in rgbd_run["batches"]]
+    with pytest.raises(ValueError, match="depths"):
+        run_gdrn_inference(rgbd_run["port"], no_depth, rgbd_run["bank"].extents,
+                           **rgbd_run["kw"])
+    with pytest.raises(ValueError, match="model bank"):
+        run_gdrn_inference(rgbd_run["port"], rgbd_run["batches"],
+                           rgbd_run["bank"].extents, post_mode="depth_refine",
+                           **rgbd_run["kw"])

@@ -68,6 +68,8 @@ def jax_gdrn_params(cfg: Config, seed: int = 0):
     keys = ("roi_img", "roi_labels", "roi_coord_2d", "roi_cams", "roi_centers",
             "roi_whs", "roi_extents", "resize_ratios")
     args = [jnp.asarray(fb[k]) for k in keys]
+    if "dstream" in pc.name:        # the depth stream's backprojected ROI
+        args.append(jnp.zeros((2, pc.input_res, pc.input_res, 3), jnp.float32))
     shapes = jax.eval_shape(lambda k: model.init({"params": k}, *args),
                             jax.random.PRNGKey(0))["params"]
     return model, random_like_tree(shapes, seed)
@@ -78,7 +80,7 @@ def port_gdrn(cfg: Config, params) -> torch.nn.Module:
     from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
     from gdrnpp_bop2022_torch.utils.weights import state_dict_from_flax
 
-    model = build_gdrn(cfg)
+    model = build_gdrn(cfg, device="cpu")
     model.load_state_dict(state_dict_from_flax(params, cfg), strict=True)
     return model
 
