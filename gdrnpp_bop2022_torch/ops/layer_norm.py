@@ -9,7 +9,9 @@ ConvNeXt's 40 LayerNorms call.
     ``F.layer_norm``, cast back;
   * a tensor on a CUDA device goes to the hand-written kernel
     ``csrc/layer_norm.cu`` (built with nvcc at first use), or the call
-    raises. There is no fallback on the card.
+    raises. There is no fallback on the card. ``_vector_path`` picks the
+    kernel's path: 16-byte accesses where C and every pointer allow them,
+    else one element per access.
 
 ``layer_norm.launches`` counts kernel launches, so a run can show that its
 main path went through the kernel.
@@ -41,10 +43,18 @@ def _kernel():
         fn = load_kernel_library("layer_norm").gdrn_layer_norm_fwd
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _vector_path(x, y, weight, bias) -> bool:
+    """True where the kernel can move 16 bytes per access: a row of C
+    values is a whole number of 16-byte vectors (C % 8 in bf16, C % 4 in
+    fp32) and x, y, weight and bias all start on a 16-byte boundary."""
+    return ((x.shape[-1] * x.element_size()) % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, y, weight, bias)))
 
 
 def _check_cuda_args(x, weight, bias):
@@ -85,7 +95,7 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     with torch.cuda.device(x.device):
         err = _kernel()(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                         y.data_ptr(), rows, x.shape[-1], float(eps),
-                        _DTYPE_CODE[x.dtype],
+                        _DTYPE_CODE[x.dtype], int(_vector_path(x, y, weight, bias)),
                         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"layer_norm kernel launch failed: cudaError {err}")

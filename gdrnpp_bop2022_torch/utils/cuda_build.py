@@ -33,9 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # per-source nvcc flags, appended to NVCC_FLAGS and folded into the hash
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
-    # no FMA contraction: the edge functions must round each product as the
-    # plain PyTorch version does, or pixels on a seam flip between versions
-    "raster": ("-fmad=false",),
+    # no FMA contraction, IEEE division, no flush to zero: the face packing
+    # and the edge functions must round each operation as the plain PyTorch
+    # version does, or pixels on a seam flip between versions
+    "raster": ("-fmad=false", "-prec-div=true", "-ftz=false"),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

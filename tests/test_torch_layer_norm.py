@@ -6,8 +6,11 @@ tests/test_pallas_ln.py: fp32 at 2e-4 (the Pallas test's own bound), bf16
 with a ragged row count at 0.05 (bf16 storage: one ulp at |y| < 4 is
 <= 0.016, two roundings of the input and output stay inside 0.05).
 
-The CUDA kernel itself runs only on the card: the ``gpu`` tests at the end
-compare it with the plain version there and skip on a machine without one.
+``_vector_path`` (which of the kernel's two paths a call takes) is
+checked here; the CUDA kernel itself runs only on the card: the ``gpu``
+tests at the end compare both paths with the plain version there (C = 100
+and an input offset by one element take the scalar path) and skip on a
+machine without one.
 """
 
 import jax.numpy as jnp
@@ -77,6 +80,19 @@ def test_nvcc_command_targets_hopper(tmp_path):
         'extern "C"') == 1
 
 
+@pytest.mark.parametrize("dtype,C,offset,vector", [
+    (torch.bfloat16, 128, 0, True), (torch.bfloat16, 1024, 0, True),
+    (torch.bfloat16, 100, 0, False), (torch.bfloat16, 128, 1, False),
+    (torch.float32, 100, 0, True), (torch.float32, 98, 0, False),
+    (torch.float32, 128, 1, False), (torch.float32, 128, 4, True)])
+def test_vector_path_needs_whole_vectors_and_alignment(dtype, C, offset, vector):
+    buf = torch.zeros(4 * C + offset, dtype=dtype)
+    x = buf[offset:].view(4, C)
+    w, b = torch.ones(C), torch.zeros(C)
+    assert ln_mod._vector_path(x, torch.empty_like(x), w, b) == vector
+    assert not ln_mod._vector_path(x, torch.empty_like(x), torch.ones(C + 1)[1:], b)
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the B1 kernel has no CPU mode")
@@ -118,3 +134,28 @@ def test_kernel_rejects_bad_input_on_card():
         big = torch.ones(2048, device=dev)
         layer_norm(torch.zeros(2, 2048, device=dev), big, big)
     assert ln_mod.MAX_CHANNELS == 1024
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rows,C,offset", [
+    (torch.bfloat16, 1001, 100, 0), (torch.float32, 1001, 98, 0),
+    (torch.bfloat16, 4096, 128, 1), (torch.float32, 4096, 128, 1),
+    (torch.bfloat16, 37, 1024, 1), (torch.float32, 37, 1024, 1),
+    (torch.bfloat16, 9, 36, 0), (torch.float32, 9, 2, 0)])
+def test_scalar_path_matches_plain_on_card(dtype, rows, C, offset):
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(rows + C + offset)
+    buf = (torch.randn(rows * C + offset, device=dev, generator=g) * 3 + 1).to(dtype)
+    x = buf[offset:].view(rows, C)
+    w = torch.randn(C, device=dev, generator=g)
+    b = torch.randn(C, device=dev, generator=g)
+    y = layer_norm(x, w, b)
+    torch.cuda.synchronize()
+    assert not ln_mod._vector_path(x, y, w, b)
+    ref = layer_norm_ref(x, w, b).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ref, rtol=0, atol=1e-5)
+    else:
+        _, e = torch.frexp(ref)
+        assert ((y.float() - ref).abs() <= torch.ldexp(torch.ones_like(ref), e - 8)
+                + 1e-5).all()
