@@ -14,8 +14,10 @@ port's two served paths with weights drawn from a seed:
     fusion, bf16, batch 64), ``post_mode="depth_refine"`` against the depth
     PNGs and a bank of 21 synthetic ellipsoid meshes of 4096 faces,
 
-and checks the models on the card against the same models on the CPU in
-fp32. Phases:
+then the evaluation path: the three PnP post modes on the RGB path, and the
+BOP scorer (VSD through B2 at image size, the port's ``score_csv`` CLI) on
+the RGB-D scene; and checks the models on the card against the same models
+on the CPU in fp32. Phases:
 
   1. device: name, versions, power limit; build both kernels (one nvcc
      each, started together);
@@ -28,6 +30,10 @@ fp32. Phases:
      480x640 and an adversarial seam scene (edges through pixel centres,
      faces across tile borders); the pack kernel's output against the torch
      packing and the cull rule bit for bit; faces per tile after culling;
+     depth-only at the scorer's VSD shapes (image-grid windows with a
+     shifted principal point, 128^2 x 256, 256^2 x 64 and 480x512 x 17,
+     and the full 480x640 image x 16) with their times, bounds and the
+     time of the box tests alone;
   4. the RGB slice: PNGs + detections on disk -> index_bop_split ->
      load_detections -> iter_test_batches -> run_gdrn_inference ->
      results_to_bop_rows -> save_bop_results, with launch counts;
@@ -35,7 +41,19 @@ fp32. Phases:
      files, the dual-stream model and depth refinement, with launch counts;
   6. depth refinement at batch 64 from GT R and GT t + 4 cm in z, through
      B2 and through the plain rasterizer;
-  7. card vs CPU parity of the RGB and the RGB-D flagship in fp32.
+  7. PnP: the three ``pose_from_dense_*`` recover 64 known poses from the
+     XYZ, mask and 2D coords that B2's attribute mode renders (what a
+     perfect network would give), within 1 degree and 1 cm; the RGB
+     flagship serves 192 ROIs with each PnP ``post_mode``, with launch
+     counts and times per batch;
+  8. scoring: ``score_bop_results(device="cuda", vsd_mode="full")`` on the
+     RGB-D scene's 192 GT instances: GT poses as estimates score AR = 1
+     exactly; a ladder of perturbed estimates scores below 1, the same
+     through B2 and through the plain rasterizer, and within 1e-3 of the
+     port on the CPU on one image; bbox VSD equals full-image VSD for every
+     pair whose plan fits a bucket; the RGB-D CSV through
+     ``python -m gdrnpp_bop2022_torch.tools.score_csv``;
+  9. card vs CPU parity of the RGB and the RGB-D flagship in fp32.
 
 The scene's sensor depth is analytic (ray-ellipsoid), never rendered by the
 kernel under test. Any failure raises (exit code 1). Without a CUDA device
@@ -97,6 +115,17 @@ PARITY_REL_TOL = 1e-3
 MESH_LAT, MESH_LON = 33, 64
 REFINE_OFFSET_M = 0.04
 REFINE_T_TOL = 1e-5       # refined t, B2 vs the plain rasterizer (m)
+PNP_MODES = ("ransac_pnp", "uncertainty_pnp", "net_iter_pnp")
+# PnP from a perfect network's dense outputs must land within these
+PNP_R_TOL_DEG = 1.0
+PNP_T_TOL_M = 0.01
+# the scorer on the card vs the port on the CPU: a render that differs at
+# one seam pixel moves one pair's VSD by 1 / union; AR averages 100 such
+# threshold pairs over the targets, so AR keys are held to 1e-3
+SCORE_CPU_TOL = 1e-3
+# perturbations of the GT poses that the scoring ladder scores
+LADDER = (("z + 1 cm", (0.0, 0.0, 0.01), 0.0), ("R 5 deg", (0.0, 0.0, 0.0), 5.0),
+          ("z + 5 cm, R 15 deg", (0.0, 0.0, 0.05), 15.0))
 
 
 def check(cond, msg):
@@ -169,7 +198,7 @@ def kernel_ms(fn, names, iters=20):
 
 def phase_device():
     name = torch.cuda.get_device_name(0)
-    log(f"[1/7] device: {name} x{torch.cuda.device_count()}  torch "
+    log(f"[1/9] device: {name} x{torch.cuda.device_count()}  torch "
         f"{torch.__version__}  CUDA {torch.version.cuda}  python "
         f"{sys.version.split()[0]}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -183,7 +212,7 @@ def phase_device():
     build_kernel_libraries(["layer_norm", "raster"])    # nvcc, both at once
     for lib in ("layer_norm", "raster"):
         load_kernel_library(lib)
-    log(f"[1/7] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
+    log(f"[1/9] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s")
     return name, card
 
@@ -240,11 +269,11 @@ def ln_times(card):
         for key, v in zip(t, (k, kc, p, lib, libc, cp)):
             t[key] += n * v
         n_bytes += n * (2 * x.numel() * x.element_size() + 2 * C * 4)
-        log(f"[2/7] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
+        log(f"[2/9] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
             f"{kc:.4f} ms, plain {p:.4f} ms, F.layer_norm hot {lib:.4f} ms cold {libc:.4f} ms,"
             f" copy_ cold {cp:.4f} ms")
     t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[2/7] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
+    log(f"[2/9] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
         f"{t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms ({100 * t['bound_ms'] / t['cold_ms']:.1f}% "
         f"of the bound cold); plain {t['plain_ms']:.4f} ms; F.layer_norm hot "
         f"{t['library_ms']:.4f} ms, cold {t['library_cold_ms']:.4f} ms; copy_ of the same "
@@ -272,7 +301,7 @@ def phase_kernels(card):
         want = off == 0 and C * x.element_size() % 16 == 0
         check(vec == want, f"B1 path for C={C} {dt} offset {off}: vector={vec}")
         worst = max(worst, err)
-        log(f"[2/7] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
+        log(f"[2/9] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
             f"{'vector' if vec else 'scalar'} path: max_abs_err={err:.3g}")
         check(ok, f"B1 disagrees with its plain version at rows={rows} C={C} "
                   f"{dt} offset {off}: max abs err {err}")
@@ -361,8 +390,9 @@ def write_models(models_dir, axes_mm):
 
 def make_rgbd_scene(root, rs):
     """A BOP test split of N_IMAGES 480x640 RGB + depth PNGs (YCB-V ids and
-    camera, depth_scale 0.1) with DETS_PER_IMAGE ellipsoids each, the 21
-    models as PLY + models_info.json, and a detections file."""
+    camera, depth_scale 0.1) with DETS_PER_IMAGE ellipsoids each (their
+    visible fractions in scene_gt_info.json), the 21 models as PLY +
+    models_info.json, and a detections file; root is <dataset root>/ycbv."""
     import cv2
     from gdrnpp_bop2022_torch.bop.inout import save_json
     from gdrnpp_bop2022_torch.datasets.meta import get_meta
@@ -376,13 +406,13 @@ def make_rgbd_scene(root, rs):
     for sub in ("rgb", "depth"):
         os.makedirs(os.path.join(sdir, sub))
     H, W = meta.height, meta.width
-    gt, cam, dets = {}, {}, {}
+    gt, info, cam, dets = {}, {}, {}, {}
     yy, xx = np.mgrid[0:H, 0:W]
     for im in range(N_IMAGES):
         depth = np.zeros((H, W))
         shade = np.zeros((H, W))
         objs = rs.choice(np.arange(1, 22), DETS_PER_IMAGE, replace=False)
-        gt[str(im)], boxes = [], []
+        gt[str(im)], boxes, own = [], [], []
         for o in objs:
             ax = axes_mm[o - 1] * 1e-3
             R = random_rotation(rs)
@@ -410,6 +440,12 @@ def make_rgbd_scene(root, rs):
                                                      float(ys.max() - ys.min() + 1)]})
             gt[str(im)].append({"obj_id": int(o), "cam_R_m2c": R.ravel().tolist(),
                                 "cam_t_m2c": (t * 1000).tolist()})
+            own.append((y0, x0, d, [int(bx), int(by), int(xs.max() - xs.min() + 1),
+                                    int(ys.max() - ys.min() + 1)]))
+        # BOP's visible fraction: the object's pixels that are in front
+        info[str(im)] = [{"bbox_obj": box, "bbox_visib": box, "visib_fract": float(
+            ((d > 0) & (depth[y0:y0 + d.shape[0], x0:x0 + d.shape[1]] == d)).sum()
+            / (d > 0).sum())} for y0, x0, d, box in own]
         img = (np.stack([shade + xx * 0.1, shade * 0.8 + yy * 0.1, shade * 0.6], -1)
                + rs.randint(0, 30, (H, W, 3))) % 256
         cv2.imwrite(os.path.join(sdir, "rgb", f"{im:06d}.png"), img.astype(np.uint8))
@@ -418,6 +454,7 @@ def make_rgbd_scene(root, rs):
         cam[str(im)] = {"cam_K": K.ravel().tolist(), "depth_scale": 0.1}
         dets[f"48/{im}"] = boxes
     save_json(os.path.join(sdir, "scene_gt.json"), gt)
+    save_json(os.path.join(sdir, "scene_gt_info.json"), info)
     save_json(os.path.join(sdir, "scene_camera.json"), cam)
     save_json(os.path.join(root, "dets.json"), dets)
     return {"meta": meta, "K": K, "axes_mm": axes_mm, "models_dir": models_dir,
@@ -545,7 +582,7 @@ def _raster_case(label, verts, faces, R, t, K, H, W):
           f"B2 {label}: depth err {d_err}, xyz err {x_err}")
     check(bool((d[~hit] == 0).all() and (x[~hit] == 0).all()), f"B2 {label}: misses not 0")
     exact = torch.equal(d, d_ref) and torch.equal(x, x_ref)
-    log(f"[3/7] B2 {label}: packed faces and boxes == torch packing and face_screen_boxes "
+    log(f"[3/9] B2 {label}: packed faces and boxes == torch packing and face_screen_boxes "
         f"bit for bit; silhouettes identical ({int(hit.sum())} px hit), depth-only == "
         f"attribute depth bit for bit; max abs err depth {d_err:.3g} m, xyz {x_err:.3g} m "
         f"({'bit-equal' if exact else 'not bit-equal'} to the plain version)")
@@ -637,7 +674,7 @@ def phase_raster(card, scene, bank):
     # faces per tile after culling, and the bound, at the flagship
     bd = raster_bound(*flag)
     pt = bd["per_tile"].float()
-    log(f"[3/7] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
+    log(f"[3/9] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
         f"{float(pt.mean()):.1f}, max {int(pt.max())} of {F}; {bd['pairs']:.4e} pixel-face "
         f"pairs inside the boxes vs {bd['all_pairs']:.4e} all pairs")
     # times at the flagship, depth only (the mode depth refinement runs)
@@ -659,19 +696,119 @@ def phase_raster(card, scene, bank):
                                                   max_block=PLAIN_MAX_BLOCK), iters=3,
                    warmup=1)
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"          # noqa: E731
-    log(f"[3/7] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
+    log(f"[3/9] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
         f"{t['cold_ms']:.4f} ms (2 launches; the raster kernel alone {kernel_only_ms:.4f} ms "
         f"by events, {fmt(t['kernel_ms'])} by the profiler, the pack kernel "
         f"{fmt(t['pack_kernel_ms'])}); attribute mode {k_attr_ms:.4f} ms; plain "
         f"{p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms ({bd['pairs']:.4e} tests x "
         f"{RASTER_OPS_PER_TEST} fp32 ops at 67 TFLOP/s, {bd['bound_by']}), all-pairs bound "
         f"{bd['all_pairs_bound_ms']:.4f} ms  [{card}]")
-    log(f"[3/7] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
+    log(f"[3/9] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
         f"kernels {full_ms:.4f} ms of device time per call  [{card}]")
-    return {"max_abs_err": worst, "ms": t["ms"], "cold_ms": t["cold_ms"], "plain_ms": p_ms,
+    vsd = [_vsd_shape(card, vsd_shape_input(scene, bank, np.random.RandomState(SEED + 20 + i),
+                                            n, bh, bw), n)
+           for i, (bh, bw, n) in enumerate(vsd_shapes())]
+    return {"vsd_shapes": vsd, "max_abs_err": worst, "ms": t["ms"], "cold_ms": t["cold_ms"], "plain_ms": p_ms,
             "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
             "all_pairs_bound_ms": bd["all_pairs_bound_ms"], "library_ms": None,
             "kernel_ms": kernel_only_ms}
+
+
+def vsd_shapes():
+    """(bh, bw, pairs per call) of the scorer's B2 calls on a 480x640 image:
+    its image-grid buckets with eval/scorer.py's chunk sizes, and the full
+    image (the fallback of pairs no bucket holds)."""
+    from gdrnpp_bop2022_torch.eval.scorer import _VSD_FULL_CHUNK, _VSD_WIN_CHUNK
+    from gdrnpp_bop2022_torch.eval.vsd import vsd_bbox_plan
+    _, _, buckets = vsd_bbox_plan(np.zeros((0, 3)), np.zeros((0, 3)), np.zeros((0, 3, 3)),
+                                  np.zeros(0), 480, 640)
+    return [(bh, bw, max(8, _VSD_WIN_CHUNK * 128 * 128 // (bh * bw))) for bh, bw in buckets] \
+        + [(480, 640, _VSD_FULL_CHUNK)]
+
+
+def vsd_shape_input(scene, bank, rs, n, bh, bw):
+    """n objects of the scene's kind (its 21 meshes, its camera) posed so that
+    eval/vsd.py::vsd_bbox_plan puts each in the (bh, bw) bucket, with K's
+    principal point shifted to the window's origin as vsd_batch_bbox does;
+    at (480, 640) any pose in front of the camera on the full image."""
+    from gdrnpp_bop2022_torch.eval.vsd import vsd_bbox_plan
+    K = scene["K"]
+    H, W = 480, 640
+    radii = np.linalg.norm(bank.verts.astype(np.float64), axis=-1).max(1)
+    m = 60 * n
+    lab = rs.randint(0, 21, m)
+    z = rs.uniform(0.45, 1.4, m)
+    t = z[:, None] * pixel_rays(K, rs.uniform(0, W, m), rs.uniform(0, H, m))
+    bucket, offs, buckets = vsd_bbox_plan(t, t, np.tile(K, (m, 1, 1)), radii[lab], H, W)
+    if (bh, bw) == (H, W):
+        pick = np.arange(n)
+        offs[:] = 0
+    else:
+        pick = np.where(bucket == buckets.index((bh, bw)))[0][:n]
+        check(len(pick) == n, f"only {len(pick)} of {m} poses fit the {bh}x{bw} bucket")
+    Kw = np.tile(K, (n, 1, 1))
+    Kw[:, 0, 2] -= offs[pick, 1]
+    Kw[:, 1, 2] -= offs[pick, 0]
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
+    lab_d = torch.as_tensor(lab[pick], device="cuda")
+    return (f32(bank.verts)[lab_d], torch.as_tensor(bank.faces, device="cuda")[lab_d],
+            f32(np.stack([random_rotation(rs) for _ in range(n)])), f32(t[pick]), f32(Kw),
+            bh, bw)
+
+
+def _vsd_shape(card, inp, n):
+    """B2 depth-only at one of the scorer's shapes: the pack kernel and boxes
+    against the torch packing bit for bit, the render against the plain
+    version bit for bit; hot, cold, the raster kernel alone, the raster
+    kernel on empty boxes (the box tests alone), faces per tile, bound."""
+    from gdrnpp_bop2022_torch.ops.raster import (_kernels, _pack_face_data, face_major,
+                                                 face_screen_boxes, pack_faces_cuda,
+                                                 render_depth_xyz_cuda, transform_verts)
+    from gdrnpp_bop2022_torch.ops.rasterizer import render_depth_xyz_batch
+    verts, faces, R, t, K, H, W = inp
+    label = f"VSD {H}x{W} x{n}"
+    packed, boxes = pack_faces_cuda(*inp, with_attrs=False)
+    fd = _pack_face_data(transform_verts(verts, R, t), verts, faces, K, with_attrs=False)
+    check(torch.equal(packed, face_major(fd)) and torch.equal(boxes, face_screen_boxes(fd, H, W)),
+          f"B2 {label}: the pack kernel differs from the torch packing or boxes")
+    d = render_depth_xyz_cuda(*inp, need_xyz=False)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_ref = render_depth_xyz_batch(*inp, need_xyz=False, max_block=PLAIN_MAX_BLOCK)[0]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    hit = d_ref > 0
+    check(bool(hit.any()), f"B2 {label}: nothing rendered")
+    check(torch.equal(d, d_ref), f"B2 {label}: depth-only render differs from the plain "
+                                 f"version (max {float((d - d_ref).abs().max())})")
+    call = lambda: render_depth_xyz_cuda(*inp, need_xyz=False)      # noqa: E731
+    k = kernel_ms(call, ("raster_kernel", "pack_faces_kernel"))
+    hot, cold = device_ms(call), cold_ms(call)
+    empty = torch.empty_like(boxes)
+    empty[..., 0:2], empty[..., 2:4] = 0, -1
+    out = torch.empty_like(d)
+    stream = torch.cuda.current_stream().cuda_stream
+    launch = lambda: _kernels().gdrn_raster_fwd(packed.data_ptr(), empty.data_ptr(), n,  # noqa: E731
+                                                faces.shape[1], H, W, out.data_ptr(), None,
+                                                0, stream)
+    check(launch() == 0, f"B2 {label}: direct launch failed")
+    box_ms = kernel_ms(launch, ("raster_kernel",))["raster_kernel"]
+    bd = raster_bound(*inp)
+    pt = bd["per_tile"].float()
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
+    log(f"[3/9] B2 {label} ({faces.shape[1]} faces): == plain version bit for bit "
+        f"({int(hit.sum())} px hit); hot {hot:.4f} ms, cold {cold:.4f} ms per call (the "
+        f"raster kernel {fmt(k['raster_kernel'])}, pack {fmt(k['pack_faces_kernel'])}; the "
+        f"raster kernel on empty boxes, i.e. its box tests alone, {fmt(box_ms)}); faces per "
+        f"{RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean {float(pt.mean()):.1f} max "
+        f"{int(pt.max())}; bound {bd['bound_ms']:.4f} ms ({bd['pairs']:.4e} pixel-face pairs "
+        f"in the boxes, {bd['bound_by']}); plain {plain_ms:.1f} ms; "
+        f"{2.0 / n:.4f} calls per scored pair  [{card}]")
+    return {"shape": [H, W], "pairs_per_call": n, "ms": hot, "cold_ms": cold,
+            "kernel_ms": k["raster_kernel"], "box_tests_ms": box_ms, "plain_ms": plain_ms,
+            "faces_per_tile_mean": float(pt.mean()), "faces_per_tile_max": int(pt.max()),
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+            "calls_per_pair": 2.0 / n}
 
 
 # ---------------------------------------------------------------------------
@@ -755,13 +892,12 @@ def phase_slice(card, tmp):
     batches = iter_test_batches(by_im, dets, batch_size=BATCH)
     extents = np.random.RandomState(SEED + 1).uniform(0.05, 0.25, (21, 3))
 
+    kw = dict(input_res=pc.input_res, output_res=pc.output_res,
+              pixel_mean=cfg.model.pixel_mean, pixel_std=cfg.model.pixel_std)
     stats = {}
     layer_norm.launches = 0                       # count this path only
-    results = run_gdrn_inference(model, batches, extents,
-                                 input_res=pc.input_res, output_res=pc.output_res,
-                                 pixel_mean=cfg.model.pixel_mean,
-                                 pixel_std=cfg.model.pixel_std,
-                                 post_mode="direct", stats=stats)
+    results = run_gdrn_inference(model, batches, extents, post_mode="direct", stats=stats,
+                                 **kw)
     launches = layer_norm.launches
     n_rois = N_IMAGES * DETS_PER_IMAGE
     check(forwards[0] == stats["n_batches"] + 1, f"{forwards[0]} forwards for "
@@ -769,11 +905,11 @@ def phase_slice(card, tmp):
     check(launches == LN_PER_FORWARD * forwards[0],
           f"layer_norm launches {launches} != 40 x {forwards[0]} forwards")
     orth = _check_rows(results, n_rois, tmp, "rgb")
-    log(f"[4/7] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
+    log(f"[4/9] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
         f"batches of {BATCH} + warm-up: {forwards[0]} forwards, layer_norm "
         f"launches {launches} = 40 x {forwards[0]}; rows finite, "
         f"max|R^T R - I| = {orth:.2e}; CSV {len(results)} rows")
-    log(f"[4/7] RGB serving (ROI crop + forward + decode, host clock after "
+    log(f"[4/9] RGB serving (ROI crop + forward + decode, host clock after "
         f"synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -788,9 +924,12 @@ def phase_slice(card, tmp):
                               dev(b0["labels"]), dev(extents).float(),
                               input_res=pc.input_res, output_res=pc.output_res)
         fwd_ms = cuda_ms(lambda: model(**rb), iters=10)
-    log(f"[4/7] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[4/9] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s  [{card}]")
-    return rb
+    serve = {"model": model, "forwards": forwards, "extents": extents, "kw": kw,
+             "batches": lambda: iter_test_batches(by_im, dets, batch_size=BATCH),
+             "rb": rb, "fwd_ms": fwd_ms, "mask_loss_type": pc.loss.mask_loss_type}
+    return rb, serve
 
 
 def phase_rgbd_slice(card, scene, bank, tmp):
@@ -850,13 +989,13 @@ def phase_rgbd_slice(card, scene, bank, tmp):
     check(p_launches == r_launches, f"RGB-D: pack launches {p_launches} != raster "
           f"launches {r_launches}")
     orth = _check_rows(results, n_rois, tmp, "rgbd")
-    log(f"[5/7] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
+    log(f"[5/9] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
         f"{bank.faces.shape[0]} meshes x {bank.faces.shape[1]} faces) in {nb} batches of "
         f"{BATCH} + warm-up, post_mode=depth_refine x{iters}: {forwards[0]} forwards, "
         f"layer_norm launches {ln_launches} = 80 x {forwards[0]}, raster launches "
         f"{r_launches} = {iters} x {nb + 1} (and as many pack launches); rows finite, max|R^T R - I| = {orth:.2e}; "
         f"CSV {len(results)} rows")
-    log(f"[5/7] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
+    log(f"[5/9] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
         f"after synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -885,7 +1024,7 @@ def phase_rgbd_slice(card, scene, bank, tmp):
                     scales, bv, bf, rb["roi_extents"])
         refine_ms = cuda_ms(lambda: depth_refine_batch(*ref_args, iters=iters,
                                                        out_res=pc.output_res), iters=10)
-    log(f"[5/7] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[5/9] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s; depth refine x{iters}: {refine_ms:.3f} ms "
         f"per batch  [{card}]")
     rows2 = {k: v[:2] for k, v in rb.items()}
@@ -913,10 +1052,265 @@ def phase_refine(card, scene, bank):
           f"depth refine left a z error of {worst_z} m from a {REFINE_OFFSET_M} m offset")
     dt = float((t_k - t_p).abs().max())
     check(dt <= REFINE_T_TOL, f"refined t, B2 vs plain rasterizer: {dt} m")
-    log(f"[6/7] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
+    log(f"[6/9] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
         f"in z, 2 iterations: z error max {worst_z * 1e3:.3f} mm, mean "
         f"{float(z_err.mean()) * 1e3:.3f} mm (limit {0.3 * REFINE_OFFSET_M * 1e3:.1f} mm); "
         f"B2 vs plain rasterizer max |dt| = {dt:.3g} m  [{card}]")
+
+
+def _rot_x(deg):
+    a = np.deg2rad(deg)
+    return np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]])
+
+
+def _pose_errors(R, t, R_gt, t_gt):
+    """Rotation (degrees) and translation (m) errors per ROI, on the host."""
+    R, t, R_gt, t_gt = (a.detach().double().cpu().numpy() for a in (R, t, R_gt, t_gt))
+    cos = np.clip((np.einsum("bij,bij->b", R, R_gt) - 1) / 2, -1, 1)
+    return np.rad2deg(np.arccos(cos)), np.linalg.norm(t - t_gt, axis=-1)
+
+
+def phase_pnp(card, scene, bank, serve, tmp):
+    """The three PnP paths from a perfect network's dense outputs (B2's
+    attribute mode at 64 known poses), then the RGB flagship served with
+    each PnP post_mode."""
+    from gdrnpp_bop2022_torch.engine.inference import (decode_dense_outputs,
+                                                       run_gdrn_inference)
+    from gdrnpp_bop2022_torch.eval import pnp_eval
+    from gdrnpp_bop2022_torch.geometry.camera import centered_crop_K
+    from gdrnpp_bop2022_torch.ops.crop import affine_grid_from_boxes
+    from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm
+    from gdrnpp_bop2022_torch.ops.raster import render_depth_xyz_cuda
+
+    rb = refine_batch(scene, bank, np.random.RandomState(SEED + 9))
+    n, res = rb["R"].shape[0], rb["out_res"]
+    cK = centered_crop_K(rb["K"], rb["centers"], rb["scales"], res)
+    depth, xyz = render_depth_xyz_cuda(rb["verts"], rb["faces"], rb["R"], rb["t"], cK, res, res)
+    mask = (depth > 0).float()
+    xyz_n = (xyz / rb["extents"][:, None, None] + 0.5) * mask[..., None]
+    im_wh = torch.tensor([640.0, 480.0], device="cuda")
+    c2d = affine_grid_from_boxes(rb["centers"], rb["scales"], res) / im_wh
+    args = (mask, xyz_n, c2d, im_wh.expand(n, 2), rb["extents"], rb["K"])
+    R0 = rb["R"] @ torch.as_tensor(_rot_x(5.0), dtype=torch.float32, device="cuda")
+    t0 = rb["t"] + torch.tensor([0.01, -0.01, 0.02], device="cuda")
+    gen = torch.Generator(device="cuda")
+    paths = {
+        "ransac_pnp": lambda: pnp_eval.pose_from_dense_ransac(
+            *args, generator=gen.manual_seed(SEED))[:2],
+        "uncertainty_pnp": lambda: pnp_eval.pose_from_dense_uncertainty(*args),
+        "net_iter_pnp": lambda: pnp_eval.pose_from_dense_net_iter(*args, R0=R0, t0=t0)}
+    for name, fn in paths.items():
+        with torch.inference_mode():
+            R, t = fn()
+            ms = cuda_ms(fn, iters=5, warmup=1)
+        r_err, t_err = _pose_errors(R, t, rb["R"], rb["t"])
+        check(r_err.max() < PNP_R_TOL_DEG and t_err.max() < PNP_T_TOL_M,
+              f"{name} from perfect dense outputs: R error {r_err.max()} deg, t error "
+              f"{t_err.max()} m")
+        log(f"[7/9] {name} recovers {n} known poses from B2-rendered XYZ / mask / 2D coords "
+            f"at {res}x{res}: R error max {r_err.max():.4f} deg, t error max "
+            f"{t_err.max() * 1e3:.3f} mm (limits {PNP_R_TOL_DEG} deg, "
+            f"{PNP_T_TOL_M * 1e3:.0f} mm); {ms:.3f} ms per batch of {n}  [{card}]")
+
+    # the RGB flagship served with each PnP post mode
+    model, forwards, kw = serve["model"], serve["forwards"], serve["kw"]
+    with torch.inference_mode():
+        out = model(**serve["rb"])
+        xyz_p, mask_p = decode_dense_outputs(out, serve["mask_loss_type"])
+        rbs = serve["rb"]
+        dargs = (mask_p, xyz_p, rbs["roi_coord_2d"], im_wh.expand(BATCH, 2),
+                 rbs["roi_extents"], rbs["roi_cams"])
+    post = {"ransac_pnp": lambda: pnp_eval.pose_from_dense_ransac(
+                *dargs, generator=gen.manual_seed(SEED))[:2],
+            "uncertainty_pnp": lambda: pnp_eval.pose_from_dense_uncertainty(
+                *dargs, R0=out["rot"], t0=out["trans"]),
+            "net_iter_pnp": lambda: pnp_eval.pose_from_dense_net_iter(
+                *dargs, R0=out["rot"], t0=out["trans"])}
+    n_rois = N_IMAGES * DETS_PER_IMAGE
+    times = {}
+    for mode in PNP_MODES:
+        stats = {}
+        forwards[0] = 0
+        layer_norm.launches = 0                   # count this path only
+        results = run_gdrn_inference(model, serve["batches"](), serve["extents"],
+                                     post_mode=mode, stats=stats, seed=SEED, **kw)
+        launches = layer_norm.launches
+        nb = stats["n_batches"]
+        check(forwards[0] == nb + 1, f"{mode}: {forwards[0]} forwards for {nb} batches")
+        check(launches == LN_PER_FORWARD * forwards[0],
+              f"{mode}: layer_norm launches {launches} != 40 x {forwards[0]} forwards")
+        orth = _check_rows(results, n_rois, tmp, mode)
+        with torch.inference_mode():
+            post_ms = cuda_ms(post[mode], iters=5, warmup=1)
+        times[mode] = {"post_ms": post_ms, "p50_ms": stats["p50_ms"],
+                       "rois_per_sec": stats["rois_per_sec"], "launches": launches}
+        log(f"[7/9] RGB post_mode={mode}: served {n_rois} ROIs in {nb} batches of {BATCH} + "
+            f"warm-up, layer_norm launches {launches} = 40 x {forwards[0]}; rows finite, "
+            f"max|R^T R - I| = {orth:.2e}; {stats['rois_per_sec']:.1f} ROI/s, p50 "
+            f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch; the PnP step "
+            f"alone {post_ms:.3f} ms per batch beside the {serve['fwd_ms']:.3f} ms forward  "
+            f"[{card}]")
+    return times
+
+
+def _scene_poses(scene, bank):
+    """The RGB-D scene's GT rows, test-depth getter and per-image plan area."""
+    from gdrnpp_bop2022_torch.datasets.bop_data import index_bop_split, load_depth
+    from gdrnpp_bop2022_torch.eval.vsd import vsd_bbox_plan
+    meta = scene["meta"]
+    records = index_bop_split(scene["split_dir"], meta)
+    gts = [{"scene_id": r.scene_id, "im_id": r.im_id, "obj_id": r.obj_id,
+            "R": r.pose[:, :3], "t": r.pose[:, 3], "visib_fract": r.visib_fract}
+           for r in records]
+    depths = {}
+    for r in records:
+        if (r.scene_id, r.im_id) not in depths:
+            depths[(r.scene_id, r.im_id)] = load_depth(r.depth_path, r.depth_scale,
+                                                       meta.depth_factor)
+    radii = np.linalg.norm(bank.verts.astype(np.float64), axis=-1).max(1)
+    t = np.stack([g["t"] for g in gts])
+    lab = np.array([bank.obj_ids.index(g["obj_id"]) for g in gts])
+    bucket, _, buckets = vsd_bbox_plan(t, t, np.tile(scene["K"], (len(t), 1, 1)), radii[lab],
+                                       480, 640)
+    area = {}
+    for g, b in zip(gts, bucket):
+        h, w = buckets[b] if b >= 0 else (480, 640)
+        area[g["im_id"]] = area.get(g["im_id"], 0) + h * w
+    return gts, depths, area
+
+
+def _estimates(gts, K, dt=(0.0, 0.0, 0.0), deg=0.0):
+    dR = _rot_x(deg)
+    return [{**g, "R": (g["R"] @ dR).astype(np.float32),
+             "t": (g["t"] + np.asarray(dt)).astype(np.float32), "score": 1.0,
+             "K": K.astype(np.float32)} for g in gts]
+
+
+def _union_counts(R_est, t_est, R_gt, t_gt, depth, Ks, verts, faces, delta=0.015):
+    """Each pair's BOP19 visibility union on the full image (eval/vsd.py's
+    masks): the pixel count one pixel's share of VSD is taken of."""
+    from gdrnpp_bop2022_torch.eval.vsd import _visib_mask_bop19, depth_to_dist
+    from gdrnpp_bop2022_torch.ops.rasterizer import render_depth_xyz
+    H, W = depth.shape[1:]
+    d_est = render_depth_xyz(verts, faces, R_est, t_est, Ks, H, W, need_xyz=False)[0]
+    d_gt = render_depth_xyz(verts, faces, R_gt, t_gt, Ks, H, W, need_xyz=False)[0]
+    dt, de, dg = (depth_to_dist(d, Ks) for d in (depth, d_est, d_gt))
+    return (_visib_mask_bop19(dt, dg, delta) | _visib_mask_bop19(dt, de, delta)).sum(dim=(1, 2))
+
+
+def phase_score(card, scene, bank, tmp):
+    """The BOP scorer on the card over the RGB-D scene."""
+    from gdrnpp_bop2022_torch.eval.scorer import VSD_TAUS, score_bop_results
+    from gdrnpp_bop2022_torch.eval.vsd import vsd_batch_bbox, vsd_batch_full, vsd_bbox_plan
+    from gdrnpp_bop2022_torch.ops.raster import pack_faces_cuda, render_depth_xyz_cuda
+    from gdrnpp_bop2022_torch.ops.rasterizer import render_depth_xyz_batch
+
+    gts, depths, area = _scene_poses(scene, bank)
+    K = scene["K"]
+    getter = lambda s, i: depths.get((s, i))                                 # noqa: E731
+    plain = lambda *a, need_xyz=True: render_depth_xyz_batch(                # noqa: E731
+        *a, need_xyz=need_xyz, max_block=PLAIN_MAX_BLOCK)
+    kw = dict(im_width=640, depth_test_getter=getter, vsd_mode="full")
+    ar_keys = ("AR", "AR_vsd", "AR_mssd", "AR_mspd")
+    n_vis = sum(g["visib_fract"] >= 0.1 for g in gts)
+
+    stats = {}
+    render_depth_xyz_cuda.launches = pack_faces_cuda.launches = 0   # count this path only
+    s_gt = score_bop_results(_estimates(gts, K), gts, bank, device="cuda", stats=stats, **kw)
+    launches = render_depth_xyz_cuda.launches
+    check(launches > 0 and pack_faces_cuda.launches == launches,
+          f"scoring: {launches} raster / {pack_faces_cuda.launches} pack launches")
+    check(all(s_gt[k] == 1.0 for k in ar_keys),
+          f"GT poses as estimates: {({k: s_gt[k] for k in ar_keys})}")
+    sec = ", ".join(f"{k} {v:.3f} s" for k, v in stats["seconds"].items())
+    log(f"[8/9] scoring GT poses as estimates ({len(gts)} GT, {n_vis} at visib >= 0.1, "
+        f"{stats['n_targets']} targets, {stats['n_pairs']} pairs) on the card, "
+        f"vsd_mode=full: AR = AR_vsd = AR_mssd = AR_mspd = 1.0; VSD pairs per render "
+        f"{stats['vsd_pairs']}; {launches} B2 calls; {sec}; "
+        f"{stats['targets_per_s']:.1f} targets/s  [{card}]")
+
+    cpu_im = min(area, key=area.get)        # the image of smallest VSD windows
+    sub = [g for g in gts if g["im_id"] == cpu_im]
+    ladder = []
+    for name, dt, deg in LADDER:
+        ests = _estimates(gts, K, dt, deg)
+        st = {}
+        s_b2 = score_bop_results(ests, gts, bank, device="cuda", stats=st, **kw)
+        t0 = time.perf_counter()
+        s_pl = score_bop_results(ests, gts, bank, device="cuda", render=plain, **kw)
+        plain_s = time.perf_counter() - t0
+        check(s_b2 == s_pl, f"ladder {name}: B2 {s_b2} != plain rasterizer {s_pl}")
+        check(s_b2["AR"] < 1.0, f"ladder {name}: AR {s_b2['AR']} is not below 1")
+        e_sub = _estimates(sub, K, dt, deg)
+        s_card = score_bop_results(e_sub, sub, bank, device="cuda", **kw)
+        t0 = time.perf_counter()
+        s_cpu = score_bop_results(e_sub, sub, bank, device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        gap = max(abs(s_card[k] - s_cpu[k]) for k in s_cpu)
+        check(s_card.keys() == s_cpu.keys() and gap <= SCORE_CPU_TOL,
+              f"ladder {name}: card vs CPU gap {gap} on image {cpu_im}")
+        ladder.append({"rung": name, **{k: s_b2[k] for k in ar_keys},
+                       "seconds": st["seconds"]["total"]})
+        log(f"[8/9] ladder {name}: " + " ".join(f"{k}={s_b2[k]:.4f}" for k in ar_keys)
+            + f" (B2 == plain rasterizer on the card, every key; image {cpu_im}'s "
+            f"{len(sub)} GT on the card vs the CPU: max gap {gap:.2e}); "
+            f"{st['seconds']['total']:.3f} s, {st['targets_per_s']:.1f} targets/s; with the "
+            f"plain rasterizer on the card {plain_s:.1f} s; image {cpu_im} on the CPU "
+            f"{cpu_s:.1f} s  [{card}]")
+
+    # bbox VSD == full-image VSD per pair on the card, where the plan fits
+    ests = _estimates(gts, K, *LADDER[-1][1:])
+    dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")   # noqa: E731
+    lab = np.array([bank.obj_ids.index(g["obj_id"]) for g in gts])
+    radii = np.linalg.norm(bank.verts.astype(np.float64), axis=-1).max(1)[lab]
+    te, tg = np.stack([e["t"] for e in ests]), np.stack([g["t"] for g in gts])
+    bucket, offs, buckets = vsd_bbox_plan(te, tg, np.tile(K, (len(gts), 1, 1)), radii, 480, 640)
+    d_all = np.stack([depths[(g["scene_id"], g["im_id"])] for g in gts])
+    taus = dev(VSD_TAUS)
+    n_fit = n_eq = 0
+    worst = 0.0
+    for bi, (bh, bw) in enumerate(buckets):
+        for i0 in range(0, int((bucket == bi).sum()), 16):
+            m = np.where(bucket == bi)[0][i0:i0 + 16]
+            lm = torch.as_tensor(lab[m], device="cuda")
+            common = (dev(bank.verts)[lm], torch.as_tensor(bank.faces, device="cuda")[lm],
+                      dev(bank.diameters)[lm], taus)
+            poses = (dev([ests[i]["R"] for i in m]), dev(te[m]), dev([gts[i]["R"] for i in m]),
+                     dev(tg[m]))
+            wins = dev([d_all[i, offs[i, 0]:offs[i, 0] + bh, offs[i, 1]:offs[i, 1] + bw]
+                        for i in m])
+            Ks = dev(np.tile(K, (len(m), 1, 1)))
+            e_box = vsd_batch_bbox(*poses, wins, torch.as_tensor(offs[m], device="cuda"), Ks,
+                                   *common)
+            e_full = vsd_batch_full(*poses, dev(d_all[m]), Ks, *common)
+            diff = (e_box - e_full).abs().amax(dim=1)
+            share = 1.0 / _union_counts(*poses, dev(d_all[m]), Ks, *common[:2]).clamp_min(1)
+            check(bool((diff <= share + 1e-6).all()), f"bbox VSD vs full VSD at {bh}x{bw}: "
+                                               f"{diff.tolist()} > one pixel's share")
+            n_fit += len(m)
+            n_eq += int((diff == 0).sum())
+            worst = max(worst, float((diff / share).max()))
+    log(f"[8/9] bbox VSD vs full-image VSD on the card, {n_fit} pairs whose plan fits a "
+        f"bucket (of {len(gts)}; ladder rung {LADDER[-1][0]}): {n_eq} equal, the rest within "
+        f"one pixel's share of their union (worst {worst:.2f} of it): the window's principal "
+        f"point, shifted by the integer origin, rounds u by <= 1 ulp  [{card}]")
+
+    # the served RGB-D CSV through the port's score_csv CLI
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gdrnpp_bop2022_torch.tools.score_csv",
+                           "--csv", os.path.join(tmp, "poses_rgbd.csv"), "--dataset", "ycbv",
+                           "--root", tmp], capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"score_csv CLI failed: {proc.stderr[-2000:]}")
+    cli = json.loads(proc.stdout)
+    check(all(k in cli and np.isfinite(cli[k]) and 0.0 <= cli[k] <= 1.0 for k in ar_keys)
+          and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in cli.values()),
+          f"score_csv CLI scores {cli}")
+    log(f"[8/9] python -m gdrnpp_bop2022_torch.tools.score_csv on the served RGB-D CSV: "
+        + " ".join(f"{k}={cli[k]:.4f}" for k in ar_keys)
+        + f", {len(cli)} keys all finite in [0, 1]; {time.perf_counter() - t0:.1f} s "
+        f"with the process start  [{card}]")
+    return {"launches": launches, "stats": stats, "ladder": ladder}
 
 
 def _parity(cfg, batch, tag):
@@ -940,7 +1334,7 @@ def _parity(cfg, batch, tag):
         tol = PARITY_ROT_TOL if k == "rot" else PARITY_REL_TOL * scale
         check(torch.isfinite(gpu[k]).all() and d <= tol,
               f"{tag} card vs CPU {k}: max abs diff {d} > {tol}")
-    log(f"[7/7] fp32 {tag}, 2 ROIs, card (B1 kernel) vs CPU (plain), TF32 "
+    log(f"[9/9] fp32 {tag}, 2 ROIs, card (B1 kernel) vs CPU (plain), TF32 "
         "off: max abs diff " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
 
 
@@ -1004,17 +1398,20 @@ def main():
     ln = phase_kernels(card)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        scene = make_rgbd_scene(os.path.join(tmp, "rgbd"), np.random.RandomState(SEED + 2))
+        scene = make_rgbd_scene(os.path.join(tmp, "ycbv"), np.random.RandomState(SEED + 2))
         bank = ModelBank.from_bop_models_dir(scene["models_dir"])
         check(bank.faces.shape == (21, 4096, 3), f"bank faces {bank.faces.shape}")
-        log(f"[3/7] RGB-D scene and model bank written and loaded in "
+        log(f"[3/9] RGB-D scene and model bank written and loaded in "
             f"{time.perf_counter() - t0:.1f} s (analytic depth, no rendering)")
         b2 = phase_raster(card, scene, bank)
-        rb = phase_slice(card, os.path.join(tmp, "rgb"))
+        rb, serve = phase_slice(card, os.path.join(tmp, "rgb"))
         ln_launches, r_launches, rb_rgbd, times = phase_rgbd_slice(card, scene, bank, tmp)
         phase_refine(card, scene, bank)
+        pnp = phase_pnp(card, scene, bank, serve, tmp)
+        del serve
+        score = phase_score(card, scene, bank, tmp)
     share = 100.0 * 2 * b2["ms"] / times["p50_ms"]
-    log(f"[5/7] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
+    log(f"[5/9] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
         f"{times['p50_ms']:.2f} ms p50 batch = {share:.2f}%  [{card}]")
     phase_parity(rb, rb_rgbd)
     bad = sorted(m for m in sys.modules
@@ -1027,14 +1424,18 @@ def main():
          "replaces": "gdrnpp_bop2022_tpu/ops/pallas_ln.py:26",
          "launches": ln_launches, "max_abs_err": ln["max_abs_err"], "ms": ln["ms"],
          "cold_ms": ln["cold_ms"], "plain_ms": ln["plain_ms"], "bound_ms": ln["bound_ms"],
-         "bound_by": ln["bound_by"], "library_ms": ln["library_ms"]},
+         "bound_by": ln["bound_by"], "library_ms": ln["library_ms"],
+         "launches_by_path": {"rgbd_depth_refine": ln_launches,
+                              **{f"rgb_{m}": pnp[m]["launches"] for m in PNP_MODES}}},
         {"name": "render_depth_xyz", "route": "cuda",
          "source": "gdrnpp_bop2022_torch/csrc/raster.cu",
          "replaces": "gdrnpp_bop2022_tpu/ops/pallas_raster.py:53",
          "launches": r_launches, "max_abs_err": b2["max_abs_err"], "ms": b2["ms"],
          "cold_ms": b2["cold_ms"], "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"],
          "bound_by": b2["bound_by"], "all_pairs_bound_ms": b2["all_pairs_bound_ms"],
-         "library_ms": None}]}))
+         "library_ms": None,
+         "launches_by_path": {"rgbd_depth_refine": r_launches, "scoring": score["launches"]},
+         "vsd_shapes": b2["vsd_shapes"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

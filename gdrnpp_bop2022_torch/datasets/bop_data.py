@@ -188,6 +188,25 @@ def load_depth(path: str, depth_scale: float, depth_factor: float) -> np.ndarray
     return d.astype(np.float32) * depth_scale / 1000.0
 
 
+def gt_detections(records: List[InstanceRecord],
+                  bbox_type: str = "AMODAL_CLIP") -> Dict[str, list]:
+    """MODEL.LOAD_DETS_TEST=False (the reference default, gdrn_base.py:10 +
+    data_loader.py:923): evaluate on the GT annotations' boxes instead of a
+    stage-1 detector file. Returns the mapping ``load_detections`` yields,
+    with score 1.0 per instance."""
+    out: Dict[str, list] = {}
+    for r in records:
+        box = (r.bbox_visib if bbox_type == "VISIB" or r.bbox_obj is None
+               else r.bbox_obj)
+        if box is None:
+            continue
+        out.setdefault(r.scene_im_id, []).append({
+            "obj_id": r.obj_id, "label": r.label,
+            "bbox_xyxy": np.asarray(box, np.float32),
+            "score": 1.0, "time": 0.0})
+    return out
+
+
 def make_records_by_image(records: List[InstanceRecord]) -> Dict[str, dict]:
     """Group per-instance records into per-image entries (test indexing)."""
     by_im: Dict[str, dict] = {}

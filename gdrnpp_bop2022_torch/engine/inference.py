@@ -1,10 +1,13 @@
 """Inference driver: detections -> poses -> BOP CSV rows.
 
-Port of ``gdrnpp_bop2022_tpu/engine/inference.py`` for ``post_mode="direct"``
-(the pose straight from the network) and ``post_mode="depth_refine"`` (the
-translation refined against the sensor depth through kernel B2), for the
-RGB model and the RGB-D dual-stream model (``with_depth_input``). The PnP
-modes arrive with ``ops/pnp.py`` and raise here.
+Port of ``gdrnpp_bop2022_tpu/engine/inference.py`` for the RGB model and the
+RGB-D dual-stream model (``with_depth_input``), with every post mode of the
+reference evaluator (GDRN_Evaluator.process branches, gdrn_evaluator.py:
+180/241/373/461): ``direct`` (the pose straight from the network),
+``ransac_pnp``, ``uncertainty_pnp`` and ``net_iter_pnp`` (the pose solved
+again from the dense XYZ prediction, ``eval/pnp_eval.py``) and
+``depth_refine`` (the translation refined against the sensor depth through
+kernel B2).
 
 Timing keeps the reference's BOP semantics (gdrn_evaluator.py:598-610):
 per-instance time = detector time + GDRN compute, then normalised per
@@ -24,10 +27,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..eval.pnp_eval import depth_refine_batch
+from ..eval.pnp_eval import (depth_refine_batch, pose_from_dense_net_iter,
+                             pose_from_dense_ransac, pose_from_dense_uncertainty)
 from ..models.gdrn import get_mask_prob
-from ..ops.crop import roi_crop_resize
-from .batching import build_depth_rois, build_test_batch
+from ..ops.crop import affine_grid_from_boxes, roi_crop_resize
+from .batching import build_depth_rois, build_test_batch, roi_coord_2d_from_grid
+
+POST_MODES = ("direct", "ransac_pnp", "uncertainty_pnp", "net_iter_pnp", "depth_refine")
+PNP_MODES = ("ransac_pnp", "uncertainty_pnp", "net_iter_pnp")
 
 
 def decode_dense_outputs(out: dict, mask_loss_type: str = "L1"):
@@ -63,7 +70,7 @@ def run_gdrn_inference(
     output_res: int = 64,
     pixel_mean=(0.0, 0.0, 0.0),
     pixel_std=(255.0, 255.0, 255.0),
-    post_mode: str = "direct",      # direct | depth_refine
+    post_mode: str = "direct",      # one of POST_MODES
     model_bank=None,                # ModelBank (verts, faces), for depth_refine
     depth_refine_iters: int = 2,
     depth_refine_threshold: float = 0.8,
@@ -73,6 +80,7 @@ def run_gdrn_inference(
     stats: Optional[dict] = None,   # out-param: serving stats
     pipeline_depth: int = 1,        # >1: keep this many batches in flight
     coord_2d_type: str = "abs",
+    seed: int = 0,                  # seeds RANSAC's draws (post_mode="ransac_pnp")
 ) -> List[dict]:
     """Run pose inference over all test batches on the model's device.
 
@@ -86,14 +94,16 @@ def run_gdrn_inference(
     carry "depths" (M, H, W) in meters. The dual-stream model gets the
     backprojected depth ROI at input_res; depth refinement crops the sensor
     depth at output_res (nearest) and renders the label's mesh from the
-    bank ``depth_refine_iters`` times per batch.
+    bank ``depth_refine_iters`` times per batch. The PnP modes solve the pose
+    again from the decoded XYZ and mask on the full-image 2D coordinates;
+    RANSAC draws its subsets from a generator on the model's device seeded
+    with ``seed``.
     """
-    if post_mode not in ("direct", "depth_refine"):
-        raise NotImplementedError(
-            f"post_mode={post_mode!r} arrives later in slice 2, with the PnP "
-            f"port (ops/pnp.py); "
-            f"the port serves post_mode='direct' and 'depth_refine'")
+    if post_mode not in POST_MODES:
+        raise ValueError(f"post_mode={post_mode!r}: one of {', '.join(POST_MODES)}")
     device = next(model.parameters()).device
+    generator = (torch.Generator(device=device).manual_seed(seed)
+                 if post_mode == "ransac_pnp" else None)
     extents = torch.as_tensor(np.asarray(extents_bank), dtype=torch.float32,
                               device=device)
     if post_mode == "depth_refine":
@@ -129,7 +139,26 @@ def run_gdrn_inference(
                                                bp_depth=bp_depth)
         out = model(**rb)
         rot, trans = out["rot"], out["trans"]
-        if post_mode == "depth_refine":
+        if post_mode in PNP_MODES:
+            xyz, mask_prob = decode_dense_outputs(out, mask_loss_type)
+            # the correspondences need ABSOLUTE normalised image coords
+            # whatever the model's input parameterisation (the reference
+            # evaluator rebuilds them from the full image, gdrn_evaluator.py:270-280)
+            im_h, im_w = batch["images"].shape[1:3]
+            c2d = rb["roi_coord_2d"]
+            if coord_2d_type != "abs":
+                c2d = roi_coord_2d_from_grid(
+                    affine_grid_from_boxes(rb["roi_centers"], scales, output_res), im_w, im_h)
+            im_wh = torch.tensor([im_w, im_h], dtype=torch.float32,
+                                 device=device).expand(rot.shape[0], 2)
+            args = (mask_prob, xyz, c2d, im_wh, rb["roi_extents"], Ks.float())
+            if post_mode == "ransac_pnp":
+                rot, trans, _ = pose_from_dense_ransac(*args, generator=generator)
+            elif post_mode == "net_iter_pnp":
+                rot, trans = pose_from_dense_net_iter(*args, R0=rot, t0=trans)
+            else:
+                rot, trans = pose_from_dense_uncertainty(*args, R0=rot, t0=trans)
+        elif post_mode == "depth_refine":
             xyz, mask_prob = decode_dense_outputs(out, mask_loss_type)
             d_crop = roi_crop_resize(depths[..., None], rb["roi_centers"], scales,
                                      output_res, method="nearest",

@@ -1,9 +1,16 @@
-"""Post-processing from dense predictions: correspondences and depth refinement.
+"""Post-processing from dense predictions: PnP and depth refinement.
 
-Port of ``gdrnpp_bop2022_tpu/eval/pnp_eval.py``: ``dense_correspondences``
-and ``depth_refine_batch`` (reference process_depth_refine,
-gdrn_evaluator.py:461-573). The RANSAC, uncertainty and net-iter PnP paths
-arrive with ``ops/pnp.py``.
+Port of ``gdrnpp_bop2022_tpu/eval/pnp_eval.py``:
+
+  * ``dense_correspondences`` (reference get_img_model_points_with_coords2d,
+    gdrn_evaluator.py:115-153): every pixel is a (2D pixel, 3D model point)
+    pair, with a validity mask where the reference selects;
+  * ``pose_from_dense_ransac`` (process_pnp_ransac, gdrn_evaluator.py:373-459);
+  * ``pose_from_dense_uncertainty`` (un_pnp_utils.py: weighted LM with the
+    mask probability as confidence);
+  * ``pose_from_dense_net_iter`` (process_net_and_pnp, gdrn_evaluator.py:
+    241-371, pnp_type "iter");
+  * ``depth_refine_batch`` (process_depth_refine, gdrn_evaluator.py:461-573).
 """
 
 from __future__ import annotations
@@ -11,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..geometry.camera import centered_crop_K
+from ..ops.pnp import lm_refine_pnp, normalize_points_2d, ransac_pnp, uncertainty_pnp
 from ..ops.rasterizer import render_depth_xyz
 
 
@@ -30,6 +38,48 @@ def dense_correspondences(mask_prob, xyz_pred, coord_2d, im_wh, extents,
     P = H * W
     return (pts2d.reshape(B, P, 2), xyz.reshape(B, P, 3), valid.reshape(B, P),
             mask_prob.reshape(B, P))
+
+
+def pose_from_dense_ransac(mask_prob, xyz_pred, coord_2d, im_wh, extents, Ks,
+                           n_hyps: int = 128, generator=None, idx=None):
+    """USE_PNP=ransac_pnp: RANSAC PnP on the dense correspondences.
+    Returns (R (B, 3, 3), t (B, 3), inlier_frac (B,))."""
+    pts2d, pts3d, valid, _ = dense_correspondences(mask_prob, xyz_pred, coord_2d, im_wh,
+                                                   extents)
+    return ransac_pnp(pts3d, pts2d, Ks, mask=valid, n_hyps=n_hyps, generator=generator,
+                      idx=idx)
+
+
+def pose_from_dense_uncertainty(mask_prob, xyz_pred, coord_2d, im_wh, extents, Ks,
+                                R0=None, t0=None):
+    """Uncertainty PnP: the mask probability as per-point confidence; LM
+    from (R0, t0) when given, else from the weighted DLT."""
+    pts2d, pts3d, valid, conf = dense_correspondences(mask_prob, xyz_pred, coord_2d,
+                                                      im_wh, extents)
+    w = torch.where(valid, conf, torch.zeros_like(conf))
+    if R0 is not None and t0 is not None:
+        return lm_refine_pnp(R0, t0, pts3d, normalize_points_2d(pts2d, Ks), weights=w,
+                             iters=15)
+    return uncertainty_pnp(pts3d, pts2d, w, Ks)
+
+
+def pose_from_dense_net_iter(mask_prob, xyz_pred, coord_2d, im_wh, extents, Ks, R0, t0,
+                             iters: int = 20, trans_diff_max: float = 1.0,
+                             min_points: int = 4):
+    """USE_PNP=net_iter_pnp: LM on the reprojection error seeded at the
+    network's pose (cv2.solvePnP SOLVEPNP_ITERATIVE with useExtrinsicGuess),
+    with the reference's two guards (gdrn_evaluator.py:346-357): a
+    translation that moved more than ``trans_diff_max`` m keeps the net's t
+    (the rotation stays refined); fewer than ``min_points`` valid
+    correspondences keep the net's pose."""
+    pts2d, pts3d, valid, _ = dense_correspondences(mask_prob, xyz_pred, coord_2d, im_wh,
+                                                   extents)
+    R, t = lm_refine_pnp(R0, t0, pts3d, normalize_points_2d(pts2d, Ks),
+                         weights=valid.to(pts3d.dtype), iters=iters)
+    moved = torch.linalg.vector_norm(t - t0, dim=-1, keepdim=True) > trans_diff_max
+    t = torch.where(moved, t0, t)
+    few = valid.sum(-1) < min_points
+    return torch.where(few[:, None, None], R0, R), torch.where(few[:, None], t0, t)
 
 
 def depth_refine_batch(rots, transes, mask_prob, xyz_pred, depth_sensor, Ks, centers,

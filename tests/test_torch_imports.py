@@ -39,5 +39,6 @@ def test_port_imports_no_jax():
               "bop.inout", "utils.weights", "utils.cuda_build", "config",
               "configs", "utils.channel_perm", "geometry.camera",
               "geometry.symmetry", "bop.models3d", "ops.rasterizer", "ops.raster",
-              "eval.pnp_eval"):
+              "eval.pnp_eval", "eval.pose_error", "eval.vsd", "eval.scorer", "ops.pnp",
+              "tools.score_csv", "tools.test_gdrn"):
         assert f"gdrnpp_bop2022_torch.{m}" in out["modules"], m

@@ -1,10 +1,15 @@
-"""Port parity: depth refinement, dense correspondences and crop cameras.
+"""Port parity: depth refinement, PnP from dense predictions, dense
+correspondences and crop cameras.
 
 ``depth_refine_batch`` runs on the ``_setup`` scenes of tests/test_pnp_eval.py
 (a cube rendered at its GT pose, the translation pushed off by a few cm)
 through the JAX package and the port (plain rasterizer on the CPU); the
 refined translations agree within 1e-5 m, and the port keeps the property
-that test asserts: a 4 cm z error falls below 30% of itself.
+that test asserts: a 4 cm z error falls below 30% of itself. The three
+``pose_from_dense_*`` paths run on the same scenes (the rendered XYZ and
+mask: what a perfect network would give) and agree with the JAX package
+within 1e-4 on R and t, RANSAC given the JAX draw; both net_iter guards
+hold.
 """
 
 import jax.numpy as jnp
@@ -12,14 +17,19 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from gdrnpp_bop2022_tpu.eval import pnp_eval as JE
 from gdrnpp_bop2022_tpu.eval.pnp_eval import dense_correspondences as j_dense
 from gdrnpp_bop2022_tpu.eval.pnp_eval import depth_refine_batch as j_refine
 from gdrnpp_bop2022_tpu.geometry.camera import centered_crop_K as j_crop_K
 from gdrnpp_bop2022_tpu.geometry.camera import get_K_crop_resize as j_K_crop
+from gdrnpp_bop2022_torch.eval import pnp_eval as TE
 from gdrnpp_bop2022_torch.eval.pnp_eval import dense_correspondences, depth_refine_batch
 from gdrnpp_bop2022_torch.geometry.camera import centered_crop_K, get_K_crop_resize
 from gdrnpp_bop2022_torch.ops.raster import render_depth_xyz_cuda
 from test_pnp_eval import _setup
+from test_torch_pnp import jax_ransac_draw
 
 _OFFSETS = ((0.0, 0.0, 0.04), (0.0, 0.0, -0.03), (0.004, -0.003, 0.02))
 
@@ -103,3 +113,76 @@ def test_crop_cameras_match_jax():
     want = np.asarray(j_K_crop(jnp.asarray(K), jnp.asarray(boxes), (48, 32)))
     got = get_K_crop_resize(torch.from_numpy(K), torch.from_numpy(boxes), (48, 32))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+
+
+def _dense(seeds=(0, 1, 4)):
+    """Per ROI the rendered mask, normalised XYZ, 2D coords, image size,
+    extent and K of a _setup scene, stacked; and the GT poses."""
+    ss = [_setup(seed=s) for s in seeds]
+    keys = ("mask", "xyz_norm", "coord2d", "im_wh", "extent", "K")
+    return [np.stack([s[k] for s in ss]).astype(np.float32) for k in keys], \
+        np.stack([s["R"] for s in ss]), np.stack([s["t"] for s in ss])
+
+
+def _close_pose(got, want, tol=1e-4):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=tol)
+
+
+def test_dense_ransac_matches_jax():
+    args, Rg, tg = _dense()
+    key = jax.random.PRNGKey(0)
+    want = JE.pose_from_dense_ransac(key, *(jnp.asarray(a) for a in args), n_hyps=32)
+    valid = j_dense(*(jnp.asarray(a) for a in args[:5]))[2]
+    idx = jax_ransac_draw(key, valid, 32, 8)
+    got = TE.pose_from_dense_ransac(*(torch.from_numpy(a) for a in args), n_hyps=32,
+                                    idx=torch.from_numpy(idx))
+    _close_pose(got, want)
+    np.testing.assert_allclose(got[1].numpy(), tg, atol=0.01)
+    g = torch.Generator().manual_seed(0)
+    R, t, frac = TE.pose_from_dense_ransac(*(torch.from_numpy(a) for a in args), generator=g)
+    np.testing.assert_allclose(t.numpy(), tg, atol=0.01)
+    assert (frac > 0.5).all()
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_dense_uncertainty_matches_jax(seeded):
+    args, Rg, tg = _dense()
+    init = dict(R0=Rg @ _small_rot(), t0=tg + 0.005) if seeded else {}
+    want = JE.pose_from_dense_uncertainty(*(jnp.asarray(a) for a in args),
+                                          **{k: jnp.asarray(v) for k, v in init.items()})
+    got = TE.pose_from_dense_uncertainty(*(torch.from_numpy(a) for a in args),
+                                         **{k: torch.from_numpy(v.astype(np.float32))
+                                            for k, v in init.items()})
+    _close_pose(got, want)
+    np.testing.assert_allclose(got[1].numpy(), tg, atol=0.01)
+
+
+def _small_rot(deg=3.0):
+    a = np.deg2rad(deg)
+    return np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]],
+                    np.float32)
+
+
+def test_dense_net_iter_matches_jax_and_guards():
+    """From the net's pose 3 degrees and 5 mm off, LM lands where JAX's does.
+    Guard 1: a net t 2 m off moves t by more than 1 m, so the net's t stays
+    (R is still refined). Guard 2: an ROI with fewer than 4 valid points
+    keeps the net's pose."""
+    args, Rg, tg = _dense()
+    R0 = (Rg @ _small_rot()).astype(np.float32)
+    t0 = (tg + 0.005).astype(np.float32)
+    t0[1, 2] += 2.0                                       # guard 1 on ROI 1
+    args[0][2] = 0.0
+    args[0][2, 10, 10:13] = 1.0                           # guard 2 on ROI 2: 3 points
+    want = JE.pose_from_dense_net_iter(*(jnp.asarray(a) for a in args), jnp.asarray(R0),
+                                       jnp.asarray(t0))
+    got = TE.pose_from_dense_net_iter(*(torch.from_numpy(a) for a in args),
+                                      torch.from_numpy(R0), torch.from_numpy(t0))
+    _close_pose(got, want)
+    R, t = got[0].numpy(), got[1].numpy()
+    np.testing.assert_allclose(t[0], tg[0], atol=0.01)
+    np.testing.assert_array_equal(t[1], t0[1])
+    assert np.abs(R[1] - R0[1]).max() > 1e-3
+    np.testing.assert_array_equal(R[2], R0[2])
+    np.testing.assert_array_equal(t[2], t0[2])
