@@ -16,8 +16,9 @@ port's two served paths with weights drawn from a seed:
 
 then the evaluation path: the three PnP post modes on the RGB path, and the
 BOP scorer (VSD through B2 at image size, the port's ``score_csv`` CLI) on
-the RGB-D scene; and checks the models on the card against the same models
-on the CPU in fp32. Phases:
+the RGB-D scene; then GDRN training (``configs.ycbv_convnext_base()`` through
+``engine.trainer.train_gdrn`` on a synthetic BOP train split); and checks the
+models on the card against the same models on the CPU in fp32. Phases:
 
   1. device: name, versions, power limit; build both kernels (one nvcc
      each, started together);
@@ -53,7 +54,22 @@ on the CPU in fp32. Phases:
      port on the CPU on one image; bbox VSD equals full-image VSD for every
      pair whose plan fits a bucket; the RGB-D CSV through
      ``python -m gdrnpp_bop2022_torch.tools.score_csv``;
-  9. card vs CPU parity of the RGB and the RGB-D flagship in fp32.
+  9. card vs CPU parity of the RGB and the RGB-D flagship in fp32 (run
+     last, after phase 10);
+ 10. training: B1's backward kernel vs its plain version (autograd through
+     layer_norm_ref) at the four ConvNeXt-base shapes at batch 48 and on the
+     scalar path, with hot / cold times beside the plain version, aten's
+     native_layer_norm_backward, a copy_ of the same bytes and the bound; a
+     synthetic train split (mask/ and mask_visib/ PNGs from the analytic
+     hits, scene_gt*.json) and the bank decimated to 1024 faces with 64 FPS
+     keypoints; B2's attribute mode at a training batch vs plain; the
+     flagship recipe with input.color_aug.prob=0 and a short warmup for
+     TRAIN_STEPS steps at batch 48 through ``train_gdrn``: step time p50 /
+     p99 by CUDA events split into online batch / forward + backward /
+     optimizer + EMA, the host wait on the loader, ROIs/s, peak memory,
+     launches per step (B1 40 + 40 and 40 reductions, B2 1 + 1), a falling
+     loss (every trainable term, on a batch held apart) and EMA != params; the checkpoint restored on the card bit for
+     bit; one fp32 step of the tiny config on the card and on the CPU.
 
 The scene's sensor depth is analytic (ray-ellipsoid), never rendered by the
 kernel under test. Any failure raises (exit code 1). Without a CUDA device
@@ -64,13 +80,16 @@ kernels' JSON record, the last line is {"ok": true, "device": {...}}.
 one, or an earlier commit unpacked with ``git archive``), builds its
 kernels and prints, as its last line, a JSON record of B1's and B2's times
 at the flagship shapes through the wrappers that every version has
-(``layer_norm``, ``render_depth_xyz_cuda``): two versions compared in one
-call on one card, in turns.
+(``layer_norm``, ``render_depth_xyz_cuda``), and, where the version trains,
+B1's backward at batch 48 and one Ranger + EMA step over the flagship
+model's parameters: two versions compared in one call on one card, in
+turns.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -101,6 +120,10 @@ PLAIN_MAX_BLOCK = 1 << 24
 # edge functions (4 sub, 2 mul, 1 sub, 1 mul each) and w2 (2 sub)
 RASTER_OPS_PER_TEST = 18
 RASTER_TILE = (32, 8)     # csrc/raster.cu's kTileW, kTileH
+# the kernels each wrapper call launches once (names as the profiler shows them)
+LN_FWD_KERNELS = ("layer_norm_rows",)
+LN_BWD_KERNELS = ("layer_norm_bwd_rows", "layer_norm_bwd_reduce")
+B2_KERNELS = ("pack_faces_kernel", "raster_kernel")
 H100_FP32_FLOPS = 67e12   # dense fp32 outside the tensor cores (data sheet)
 H100_BYTES_PER_S = 3.35e12
 # cold timing: a 256 MB write evicts the 50 MB L2 before each call; the card
@@ -126,6 +149,43 @@ SCORE_CPU_TOL = 1e-3
 # perturbations of the GT poses that the scoring ladder scores
 LADDER = (("z + 1 cm", (0.0, 0.0, 0.01), 0.0), ("R 5 deg", (0.0, 0.0, 0.0), 5.0),
           ("z + 5 cm, R 15 deg", (0.0, 0.0, 0.05), 15.0))
+# training: configs.ycbv_convnext_base() at its batch of 48 on a synthetic
+# train split of TRAIN_IMAGES images (8 ellipsoids each), TRAIN_STEPS steps
+# with a TRAIN_WARMUP-step warmup, a metrics row every TRAIN_LOG_PERIOD
+# steps; step times skip the first TRAIN_SKIP steps (allocator and cuDNN
+# warm-up). The loss must fall: on one batch held apart (its own loader
+# seed), the total loss less the region CE's closed-form constant (log(65)
+# for every pixel outside the mask, over the mask's count: ~2/3 of the total,
+# with no gradient) must fall below TRAIN_LOSS_DROP x its value at the
+# initial weights. That remainder is the sum of every trainable term.
+TRAIN_BATCH = 48
+TRAIN_IMAGES = 24
+TRAIN_STEPS = 40
+TRAIN_WARMUP = 5
+TRAIN_LOG_PERIOD = 5
+TRAIN_SKIP = 3
+TRAIN_LOSS_DROP = 0.8
+TRAIN_PROFILE_STEPS = 3
+TRAIN_PROFILE_TOP = 15
+POSE_LOSSES = ("loss_PM_R", "loss_centroid", "loss_z")
+OPT_STEPS = 12            # two lookahead syncs (k = 6) per timing
+# B1 backward vs plain: dx as LN_TOL_F32 / one bf16 ulp; dweight and dbias
+# within 1e-4 of the sum of the absolute values of their terms (rows are
+# summed in another order)
+LN_BWD_REL_TOL = 1e-4
+# card vs CPU, one fp32 step of the tiny config (tests/test_model_train_step.py
+# sizes, 21 classes, no warmup): losses relative to max(|loss|, 1); grads
+# and params after the step relative to each tensor's largest magnitude
+# (convolutions sum in another order on cuDNN and oneDNN)
+TRAIN_TINY = {"model.pose_net.num_classes": 21, "model.pose_net.input_res": 64,
+              "model.pose_net.output_res": 16, "model.pose_net.backbone.name": "convnext_tiny",
+              "model.pose_net.geo_head.feat_dim": 32, "model.pose_net.geo_head.num_gn_groups": 8,
+              "model.pose_net.geo_head.num_regions": 8, "model.pose_net.pnp_net.featdim": 32,
+              "model.pose_net.pnp_net.num_gn_groups": 8, "model.compute_dtype": "float32",
+              "solver.warmup_iters": 0}
+TRAIN_PARITY_LOSS_TOL = 1e-4
+TRAIN_PARITY_GRAD_TOL = 1e-3
+TRAIN_PARITY_PARAM_TOL = 1e-5
 
 
 def check(cond, msg):
@@ -172,15 +232,26 @@ def cold_ms(fn, reps=10):
     return total / reps
 
 
-def device_ms(fn):
-    """Device time per call of fn(), summed over every kernel it launches."""
-    return kernel_ms(fn, ("",))[""]
+def device_ms(fn, kernels=None):
+    """Device time per call of fn(), summed over every kernel it launches;
+    or, where `kernels` names the kernels a call launches once each, over
+    those (kernel_ms's per-record mean: robust to dropped records)."""
+    if kernels is None:
+        return kernel_ms(fn, ("",))[""]
+    ms = kernel_ms(fn, kernels, per_call=dict.fromkeys(kernels, 1))
+    return sum(ms.values()) if all(v is not None for v in ms.values()) else None
 
 
-def kernel_ms(fn, names, iters=20):
+def kernel_ms(fn, names, iters=20, per_call=None):
     """Device time per call of fn() in the kernels whose names contain each
     of `names`, by torch.profiler over `iters` back-to-back calls (None where
-    no such kernel shows)."""
+    no such kernel shows). per_call[name], where given, is the number of
+    such kernels a call launches: the time per call is then the mean of the
+    records the trace kept times per_call, since the profiler can drop
+    kernel records (one run on an H100 kept 7 of 20 calls' records), and
+    a short trace is logged. Name only kernels that a call launches itself,
+    never the copies it may make."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -190,15 +261,23 @@ def kernel_ms(fn, names, iters=20):
         torch.cuda.synchronize()
     out = {}
     for n in names:
+        ev = [e for e in prof.key_averages() if n in e.key and e.device_type == DeviceType.CUDA]
         us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
-                 for e in prof.key_averages() if n in e.key)
+                 for e in ev)
         out[n] = us / iters / 1e3 if us else None
+        k = (per_call or {}).get(n)
+        count = sum(e.count for e in ev)
+        if k and us:
+            out[n] = us / (count / k) / 1e3
+            if count != iters * k:
+                log(f"profiler kept {count} of {iters * k} kernel records of {n or 'fn'!r}; "
+                    f"time per call from their mean")
     return out
 
 
 def phase_device():
     name = torch.cuda.get_device_name(0)
-    log(f"[1/9] device: {name} x{torch.cuda.device_count()}  torch "
+    log(f"[1/10] device: {name} x{torch.cuda.device_count()}  torch "
         f"{torch.__version__}  CUDA {torch.version.cuda}  python "
         f"{sys.version.split()[0]}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -212,7 +291,7 @@ def phase_device():
     build_kernel_libraries(["layer_norm", "raster"])    # nvcc, both at once
     for lib in ("layer_norm", "raster"):
         load_kernel_library(lib)
-    log(f"[1/9] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
+    log(f"[1/10] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s")
     return name, card
 
@@ -259,7 +338,7 @@ def ln_times(card):
         w = 1 + 0.1 * torch.randn(C, device="cuda", generator=g)
         b = 0.1 * torch.randn(C, device="cuda", generator=g)
         wb, bb = w.bfloat16(), b.bfloat16()     # F.layer_norm takes one dtype
-        k = device_ms(lambda: layer_norm(x, w, b))
+        k = device_ms(lambda: layer_norm(x, w, b), kernels=LN_FWD_KERNELS)
         kc = cold_ms(lambda: layer_norm(x, w, b))
         p = device_ms(lambda: layer_norm_ref(x, w, b))
         lib = device_ms(lambda: F.layer_norm(x, (C,), wb, bb, 1e-6))
@@ -269,11 +348,11 @@ def ln_times(card):
         for key, v in zip(t, (k, kc, p, lib, libc, cp)):
             t[key] += n * v
         n_bytes += n * (2 * x.numel() * x.element_size() + 2 * C * 4)
-        log(f"[2/9] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
+        log(f"[2/10] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
             f"{kc:.4f} ms, plain {p:.4f} ms, F.layer_norm hot {lib:.4f} ms cold {libc:.4f} ms,"
             f" copy_ cold {cp:.4f} ms")
     t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[2/9] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
+    log(f"[2/10] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
         f"{t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms ({100 * t['bound_ms'] / t['cold_ms']:.1f}% "
         f"of the bound cold); plain {t['plain_ms']:.4f} ms; F.layer_norm hot "
         f"{t['library_ms']:.4f} ms, cold {t['library_cold_ms']:.4f} ms; copy_ of the same "
@@ -301,7 +380,7 @@ def phase_kernels(card):
         want = off == 0 and C * x.element_size() % 16 == 0
         check(vec == want, f"B1 path for C={C} {dt} offset {off}: vector={vec}")
         worst = max(worst, err)
-        log(f"[2/9] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
+        log(f"[2/10] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
             f"{'vector' if vec else 'scalar'} path: max_abs_err={err:.3g}")
         check(ok, f"B1 disagrees with its plain version at rows={rows} C={C} "
                   f"{dt} offset {off}: max abs err {err}")
@@ -548,7 +627,7 @@ def seam_scene(n=8, device="cuda"):
             dev(np.zeros((n, 3), np.float32)), dev(K), 64, 64)
 
 
-def _raster_case(label, verts, faces, R, t, K, H, W):
+def _raster_case(label, verts, faces, R, t, K, H, W, tag="[3/10]"):
     """The pack kernel vs the torch packing and the cull rule, and the
     kernel (both modes) vs plain (both modes), at one shape; returns the
     worst depth / xyz errors."""
@@ -582,7 +661,7 @@ def _raster_case(label, verts, faces, R, t, K, H, W):
           f"B2 {label}: depth err {d_err}, xyz err {x_err}")
     check(bool((d[~hit] == 0).all() and (x[~hit] == 0).all()), f"B2 {label}: misses not 0")
     exact = torch.equal(d, d_ref) and torch.equal(x, x_ref)
-    log(f"[3/9] B2 {label}: packed faces and boxes == torch packing and face_screen_boxes "
+    log(f"{tag} B2 {label}: packed faces and boxes == torch packing and face_screen_boxes "
         f"bit for bit; silhouettes identical ({int(hit.sum())} px hit), depth-only == "
         f"attribute depth bit for bit; max abs err depth {d_err:.3g} m, xyz {x_err:.3g} m "
         f"({'bit-equal' if exact else 'not bit-equal'} to the plain version)")
@@ -637,7 +716,8 @@ def b2_times(flag):
     the raster kernel and in the pack kernel (torch.profiler)."""
     from gdrnpp_bop2022_torch.ops.raster import render_depth_xyz_cuda
     call = lambda: render_depth_xyz_cuda(*flag, need_xyz=False)     # noqa: E731
-    k = kernel_ms(call, ("raster_kernel", "pack_faces_kernel"))
+    k = kernel_ms(call, ("raster_kernel", "pack_faces_kernel"),
+                  per_call={"raster_kernel": 1, "pack_faces_kernel": 1})
     return {"ms": cuda_ms(call), "cold_ms": cold_ms(call), "kernel_ms": k["raster_kernel"],
             "pack_kernel_ms": k["pack_faces_kernel"]}
 
@@ -674,13 +754,14 @@ def phase_raster(card, scene, bank):
     # faces per tile after culling, and the bound, at the flagship
     bd = raster_bound(*flag)
     pt = bd["per_tile"].float()
-    log(f"[3/9] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
+    log(f"[3/10] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
         f"{float(pt.mean()):.1f}, max {int(pt.max())} of {F}; {bd['pairs']:.4e} pixel-face "
         f"pairs inside the boxes vs {bd['all_pairs']:.4e} all pairs")
     # times at the flagship, depth only (the mode depth refinement runs)
     t = b2_times(flag)
     k_attr_ms = cuda_ms(lambda: render_depth_xyz_cuda(*flag))
-    full_ms = device_ms(lambda: render_depth_xyz_cuda(*full, need_xyz=False))
+    full_ms = device_ms(lambda: render_depth_xyz_cuda(*full, need_xyz=False),
+                        kernels=B2_KERNELS)
     # the raster kernel alone on packed faces (a direct call: no launch is counted)
     packed, boxes = pack_faces_cuda(*flag, with_attrs=False)
     out = torch.empty((BATCH, 64, 64), device="cuda")
@@ -696,14 +777,14 @@ def phase_raster(card, scene, bank):
                                                   max_block=PLAIN_MAX_BLOCK), iters=3,
                    warmup=1)
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"          # noqa: E731
-    log(f"[3/9] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
+    log(f"[3/10] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
         f"{t['cold_ms']:.4f} ms (2 launches; the raster kernel alone {kernel_only_ms:.4f} ms "
         f"by events, {fmt(t['kernel_ms'])} by the profiler, the pack kernel "
         f"{fmt(t['pack_kernel_ms'])}); attribute mode {k_attr_ms:.4f} ms; plain "
         f"{p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms ({bd['pairs']:.4e} tests x "
         f"{RASTER_OPS_PER_TEST} fp32 ops at 67 TFLOP/s, {bd['bound_by']}), all-pairs bound "
         f"{bd['all_pairs_bound_ms']:.4f} ms  [{card}]")
-    log(f"[3/9] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
+    log(f"[3/10] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
         f"kernels {full_ms:.4f} ms of device time per call  [{card}]")
     vsd = [_vsd_shape(card, vsd_shape_input(scene, bank, np.random.RandomState(SEED + 20 + i),
                                             n, bh, bw), n)
@@ -782,8 +863,9 @@ def _vsd_shape(card, inp, n):
     check(torch.equal(d, d_ref), f"B2 {label}: depth-only render differs from the plain "
                                  f"version (max {float((d - d_ref).abs().max())})")
     call = lambda: render_depth_xyz_cuda(*inp, need_xyz=False)      # noqa: E731
-    k = kernel_ms(call, ("raster_kernel", "pack_faces_kernel"))
-    hot, cold = device_ms(call), cold_ms(call)
+    k = kernel_ms(call, ("raster_kernel", "pack_faces_kernel"),
+                  per_call={"raster_kernel": 1, "pack_faces_kernel": 1})
+    hot, cold = device_ms(call, kernels=B2_KERNELS), cold_ms(call)
     empty = torch.empty_like(boxes)
     empty[..., 0:2], empty[..., 2:4] = 0, -1
     out = torch.empty_like(d)
@@ -792,11 +874,11 @@ def _vsd_shape(card, inp, n):
                                                 faces.shape[1], H, W, out.data_ptr(), None,
                                                 0, stream)
     check(launch() == 0, f"B2 {label}: direct launch failed")
-    box_ms = kernel_ms(launch, ("raster_kernel",))["raster_kernel"]
+    box_ms = kernel_ms(launch, ("raster_kernel",), per_call={"raster_kernel": 1})["raster_kernel"]
     bd = raster_bound(*inp)
     pt = bd["per_tile"].float()
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
-    log(f"[3/9] B2 {label} ({faces.shape[1]} faces): == plain version bit for bit "
+    log(f"[3/10] B2 {label} ({faces.shape[1]} faces): == plain version bit for bit "
         f"({int(hit.sum())} px hit); hot {hot:.4f} ms, cold {cold:.4f} ms per call (the "
         f"raster kernel {fmt(k['raster_kernel'])}, pack {fmt(k['pack_faces_kernel'])}; the "
         f"raster kernel on empty boxes, i.e. its box tests alone, {fmt(box_ms)}); faces per "
@@ -905,11 +987,11 @@ def phase_slice(card, tmp):
     check(launches == LN_PER_FORWARD * forwards[0],
           f"layer_norm launches {launches} != 40 x {forwards[0]} forwards")
     orth = _check_rows(results, n_rois, tmp, "rgb")
-    log(f"[4/9] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
+    log(f"[4/10] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
         f"batches of {BATCH} + warm-up: {forwards[0]} forwards, layer_norm "
         f"launches {launches} = 40 x {forwards[0]}; rows finite, "
         f"max|R^T R - I| = {orth:.2e}; CSV {len(results)} rows")
-    log(f"[4/9] RGB serving (ROI crop + forward + decode, host clock after "
+    log(f"[4/10] RGB serving (ROI crop + forward + decode, host clock after "
         f"synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -924,7 +1006,7 @@ def phase_slice(card, tmp):
                               dev(b0["labels"]), dev(extents).float(),
                               input_res=pc.input_res, output_res=pc.output_res)
         fwd_ms = cuda_ms(lambda: model(**rb), iters=10)
-    log(f"[4/9] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[4/10] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s  [{card}]")
     serve = {"model": model, "forwards": forwards, "extents": extents, "kw": kw,
              "batches": lambda: iter_test_batches(by_im, dets, batch_size=BATCH),
@@ -989,13 +1071,13 @@ def phase_rgbd_slice(card, scene, bank, tmp):
     check(p_launches == r_launches, f"RGB-D: pack launches {p_launches} != raster "
           f"launches {r_launches}")
     orth = _check_rows(results, n_rois, tmp, "rgbd")
-    log(f"[5/9] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
+    log(f"[5/10] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
         f"{bank.faces.shape[0]} meshes x {bank.faces.shape[1]} faces) in {nb} batches of "
         f"{BATCH} + warm-up, post_mode=depth_refine x{iters}: {forwards[0]} forwards, "
         f"layer_norm launches {ln_launches} = 80 x {forwards[0]}, raster launches "
         f"{r_launches} = {iters} x {nb + 1} (and as many pack launches); rows finite, max|R^T R - I| = {orth:.2e}; "
         f"CSV {len(results)} rows")
-    log(f"[5/9] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
+    log(f"[5/10] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
         f"after synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -1024,7 +1106,7 @@ def phase_rgbd_slice(card, scene, bank, tmp):
                     scales, bv, bf, rb["roi_extents"])
         refine_ms = cuda_ms(lambda: depth_refine_batch(*ref_args, iters=iters,
                                                        out_res=pc.output_res), iters=10)
-    log(f"[5/9] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[5/10] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s; depth refine x{iters}: {refine_ms:.3f} ms "
         f"per batch  [{card}]")
     rows2 = {k: v[:2] for k, v in rb.items()}
@@ -1052,7 +1134,7 @@ def phase_refine(card, scene, bank):
           f"depth refine left a z error of {worst_z} m from a {REFINE_OFFSET_M} m offset")
     dt = float((t_k - t_p).abs().max())
     check(dt <= REFINE_T_TOL, f"refined t, B2 vs plain rasterizer: {dt} m")
-    log(f"[6/9] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
+    log(f"[6/10] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
         f"in z, 2 iterations: z error max {worst_z * 1e3:.3f} mm, mean "
         f"{float(z_err.mean()) * 1e3:.3f} mm (limit {0.3 * REFINE_OFFSET_M * 1e3:.1f} mm); "
         f"B2 vs plain rasterizer max |dt| = {dt:.3g} m  [{card}]")
@@ -1107,7 +1189,7 @@ def phase_pnp(card, scene, bank, serve, tmp):
         check(r_err.max() < PNP_R_TOL_DEG and t_err.max() < PNP_T_TOL_M,
               f"{name} from perfect dense outputs: R error {r_err.max()} deg, t error "
               f"{t_err.max()} m")
-        log(f"[7/9] {name} recovers {n} known poses from B2-rendered XYZ / mask / 2D coords "
+        log(f"[7/10] {name} recovers {n} known poses from B2-rendered XYZ / mask / 2D coords "
             f"at {res}x{res}: R error max {r_err.max():.4f} deg, t error max "
             f"{t_err.max() * 1e3:.3f} mm (limits {PNP_R_TOL_DEG} deg, "
             f"{PNP_T_TOL_M * 1e3:.0f} mm); {ms:.3f} ms per batch of {n}  [{card}]")
@@ -1144,7 +1226,7 @@ def phase_pnp(card, scene, bank, serve, tmp):
             post_ms = cuda_ms(post[mode], iters=5, warmup=1)
         times[mode] = {"post_ms": post_ms, "p50_ms": stats["p50_ms"],
                        "rois_per_sec": stats["rois_per_sec"], "launches": launches}
-        log(f"[7/9] RGB post_mode={mode}: served {n_rois} ROIs in {nb} batches of {BATCH} + "
+        log(f"[7/10] RGB post_mode={mode}: served {n_rois} ROIs in {nb} batches of {BATCH} + "
             f"warm-up, layer_norm launches {launches} = 40 x {forwards[0]}; rows finite, "
             f"max|R^T R - I| = {orth:.2e}; {stats['rois_per_sec']:.1f} ROI/s, p50 "
             f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch; the PnP step "
@@ -1223,7 +1305,7 @@ def phase_score(card, scene, bank, tmp):
     check(all(s_gt[k] == 1.0 for k in ar_keys),
           f"GT poses as estimates: {({k: s_gt[k] for k in ar_keys})}")
     sec = ", ".join(f"{k} {v:.3f} s" for k, v in stats["seconds"].items())
-    log(f"[8/9] scoring GT poses as estimates ({len(gts)} GT, {n_vis} at visib >= 0.1, "
+    log(f"[8/10] scoring GT poses as estimates ({len(gts)} GT, {n_vis} at visib >= 0.1, "
         f"{stats['n_targets']} targets, {stats['n_pairs']} pairs) on the card, "
         f"vsd_mode=full: AR = AR_vsd = AR_mssd = AR_mspd = 1.0; VSD pairs per render "
         f"{stats['vsd_pairs']}; {launches} B2 calls; {sec}; "
@@ -1251,7 +1333,7 @@ def phase_score(card, scene, bank, tmp):
               f"ladder {name}: card vs CPU gap {gap} on image {cpu_im}")
         ladder.append({"rung": name, **{k: s_b2[k] for k in ar_keys},
                        "seconds": st["seconds"]["total"]})
-        log(f"[8/9] ladder {name}: " + " ".join(f"{k}={s_b2[k]:.4f}" for k in ar_keys)
+        log(f"[8/10] ladder {name}: " + " ".join(f"{k}={s_b2[k]:.4f}" for k in ar_keys)
             + f" (B2 == plain rasterizer on the card, every key; image {cpu_im}'s "
             f"{len(sub)} GT on the card vs the CPU: max gap {gap:.2e}); "
             f"{st['seconds']['total']:.3f} s, {st['targets_per_s']:.1f} targets/s; with the "
@@ -1290,7 +1372,7 @@ def phase_score(card, scene, bank, tmp):
             n_fit += len(m)
             n_eq += int((diff == 0).sum())
             worst = max(worst, float((diff / share).max()))
-    log(f"[8/9] bbox VSD vs full-image VSD on the card, {n_fit} pairs whose plan fits a "
+    log(f"[8/10] bbox VSD vs full-image VSD on the card, {n_fit} pairs whose plan fits a "
         f"bucket (of {len(gts)}; ladder rung {LADDER[-1][0]}): {n_eq} equal, the rest within "
         f"one pixel's share of their union (worst {worst:.2f} of it): the window's principal "
         f"point, shifted by the integer origin, rounds u by <= 1 ulp  [{card}]")
@@ -1306,11 +1388,490 @@ def phase_score(card, scene, bank, tmp):
     check(all(k in cli and np.isfinite(cli[k]) and 0.0 <= cli[k] <= 1.0 for k in ar_keys)
           and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in cli.values()),
           f"score_csv CLI scores {cli}")
-    log(f"[8/9] python -m gdrnpp_bop2022_torch.tools.score_csv on the served RGB-D CSV: "
+    log(f"[8/10] python -m gdrnpp_bop2022_torch.tools.score_csv on the served RGB-D CSV: "
         + " ".join(f"{k}={cli[k]:.4f}" for k in ar_keys)
         + f", {len(cli)} keys all finite in [0, 1]; {time.perf_counter() - t0:.1f} s "
         f"with the process start  [{card}]")
     return {"launches": launches, "stats": stats, "ladder": ladder}
+
+
+# ---------------------------------------------------------------------------
+# B1 backward and GDRN training
+# ---------------------------------------------------------------------------
+
+def _ln_bwd_case(rows, C, dtype, g, offset=0):
+    """B1's backward (through LayerNormFn, as training calls it) vs its plain
+    version (autograd through layer_norm_ref) on x, dy (rows, C) drawn from
+    g; returns (max abs err of dx, of dweight / dbias relative to the sum of
+    the absolute values of their terms, ok)."""
+    from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm, layer_norm_backward_ref
+    buf = (torch.randn(rows * C + offset, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+    dbuf = torch.randn(rows * C + offset, device="cuda", generator=g).to(dtype)
+    x, dy = buf[offset:].view(rows, C), dbuf[offset:].view(rows, C)
+    w = (1 + 0.1 * torch.randn(C, device="cuda", generator=g)).requires_grad_(True)
+    b = (0.1 * torch.randn(C, device="cuda", generator=g)).requires_grad_(True)
+    xr = x.detach().clone().requires_grad_(True)
+    layer_norm(xr, w, b).backward(dy)
+    dx_ref, dw_ref, db_ref = layer_norm_backward_ref(dy, x, w.detach())
+    torch.cuda.synchronize()
+    ref = dx_ref.float()
+    err = (xr.grad.float() - ref).abs()
+    if dtype == torch.float32:
+        ok = bool((err <= LN_TOL_F32).all())
+    else:
+        _, e = torch.frexp(ref)
+        ok = bool((err <= torch.ldexp(torch.ones_like(ref), e - 8) + 1e-5).all())
+    xf = x.float()
+    xhat = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(
+        xf.var(-1, unbiased=False, keepdim=True) + 1e-6)
+    rel = 0.0
+    for got, want, terms in ((w.grad, dw_ref, (dy.float() * xhat).abs().sum(0)),
+                             (b.grad, db_ref, dy.float().abs().sum(0))):
+        rel = max(rel, float(((got - want).abs() / (terms + 1e-12)).max()))
+    return float(err.max()), rel, ok and rel <= LN_BWD_REL_TOL
+
+
+def ln_backward_times(card):
+    """B1's backward at the training shapes (batch TRAIN_BATCH, bf16, 40
+    LayerNorms): hot (profiler device time) and cold ms per step, the plain
+    version's hot time, aten's native_layer_norm_backward (what autograd
+    through F.layer_norm runs) hot, a copy_ of the same bytes cold, and the
+    bytes bound; the forward with statistics cold (events: the profiler lost
+    its events once at these 5-40 us calls), and its bound."""
+    from gdrnpp_bop2022_torch.ops.layer_norm import (_forward_cuda, layer_norm_backward,
+                                                     layer_norm_backward_ref)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    t = dict.fromkeys(("ms", "cold_ms", "plain_ms", "library_ms", "copy_cold_ms",
+                       "fwd_stats_cold_ms"), 0.0)
+    n_bytes = fwd_bytes = 0
+    for r, C, n in LN_SHAPES:
+        rows = TRAIN_BATCH * r
+        x = (torch.randn(rows, C, device="cuda", generator=g) * 2 + 0.5).to(torch.bfloat16)
+        dy = torch.randn(rows, C, device="cuda", generator=g).to(torch.bfloat16)
+        w = 1 + 0.1 * torch.randn(C, device="cuda", generator=g)
+        b = 0.1 * torch.randn(C, device="cuda", generator=g)
+        _, mean, rstd = _forward_cuda(x, w, b, 1e-6, with_stats=True)
+        fs = cold_ms(lambda: _forward_cuda(x, w, b, 1e-6, with_stats=True))
+        k = device_ms(lambda: layer_norm_backward(dy, x, w, mean, rstd),
+                      kernels=LN_BWD_KERNELS)
+        kc = cold_ms(lambda: layer_norm_backward(dy, x, w, mean, rstd))
+        p = device_ms(lambda: layer_norm_backward_ref(dy, x, w))
+        wb, bb = w.bfloat16(), b.bfloat16()
+        _, m_l, r_l = torch.ops.aten.native_layer_norm(x, [C], wb, bb, 1e-6)
+        lib = device_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [C], m_l, r_l, wb, bb, [True, True, True]))
+        src = torch.empty(3 * x.numel() // 2, dtype=torch.bfloat16, device="cuda")
+        dst = torch.empty_like(src)          # reads and writes 3 x x's bytes
+        cp = cold_ms(lambda: dst.copy_(src))
+        for key, v in zip(t, (k, kc, p, lib, cp, fs)):
+            t[key] += n * v
+        n_bytes += n * (3 * x.numel() * 2 + 2 * rows * 4 + 3 * C * 4)
+        fwd_bytes += n * (2 * x.numel() * 2 + 2 * rows * 4 + 2 * C * 4)
+        log(f"[10/10] B1 backward rows={rows} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms "
+            f"cold {kc:.4f} ms, plain {p:.4f} ms, native_layer_norm_backward hot {lib:.4f} "
+            f"ms, copy_ of the same bytes cold {cp:.4f} ms; forward with statistics cold "
+            f"{fs:.4f} ms")
+    t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
+    t["fwd_stats_bound_ms"] = fwd_bytes / H100_BYTES_PER_S * 1e3
+    log(f"[10/10] B1 backward per training step at batch {TRAIN_BATCH} (40 LayerNorms, "
+        f"bf16): kernel hot {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms "
+        f"({100 * t['bound_ms'] / t['cold_ms']:.1f}% of the bound cold); plain "
+        f"{t['plain_ms']:.4f} ms; native_layer_norm_backward hot {t['library_ms']:.4f} ms; "
+        f"copy_ of the same bytes cold {t['copy_cold_ms']:.4f} ms; bound {t['bound_ms']:.4f} "
+        f"ms ({n_bytes / 1e9:.3f} GB at 3.35 TB/s). Forward with statistics cold "
+        f"{t['fwd_stats_cold_ms']:.4f} ms, bound {t['fwd_stats_bound_ms']:.4f} ms "
+        f"({fwd_bytes / 1e9:.3f} GB)  [{card}]")
+    return t
+
+
+def phase_ln_backward(card):
+    from gdrnpp_bop2022_torch.ops.layer_norm import _vector_path
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    worst = 0.0
+    cases = [(TRAIN_BATCH * r, C, dt, 0) for r, C, _ in LN_SHAPES
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [(r, C, dt, off) for r, C, off in ((4099, 100, 0), (TRAIN_BATCH * 4096, 128, 1),
+                                               (777, 1024, 1))
+              for dt in (torch.bfloat16, torch.float32)]
+    for rows, C, dt, off in cases:
+        err, rel, ok = _ln_bwd_case(rows, C, dt, g, off)
+        x = torch.empty(rows * C + off, dtype=dt, device="cuda")[off:].view(rows, C)
+        vec = _vector_path(x, x, torch.empty(C, device="cuda"))
+        worst = max(worst, err)
+        log(f"[10/10] B1 backward rows={rows} C={C} {str(dt)[6:]} offset={off} "
+            f"{'vector' if vec else 'scalar'} path: dx max_abs_err={err:.3g}, dweight/dbias "
+            f"max err / sum|terms| = {rel:.3g}")
+        check(ok, f"B1 backward disagrees with its plain version at rows={rows} C={C} {dt} "
+                  f"offset {off}: dx err {err}, dweight/dbias rel {rel}")
+    t = ln_backward_times(card)
+    t["max_abs_err"] = worst
+    t["bound_by"] = "bytes"
+    return t
+
+
+def make_train_split(root, axes_mm, rs, n_images=TRAIN_IMAGES):
+    """A BOP train split <root>/train_pbr/000000: n_images 480x640 RGB PNGs
+    with DETS_PER_IMAGE ellipsoids each, their amodal (mask/) and visible
+    (mask_visib/) masks as PNGs from the analytic ray hits, and scene_gt /
+    scene_gt_info / scene_camera (YCB-V's camera)."""
+    import cv2
+    from gdrnpp_bop2022_torch.bop.inout import save_json
+    from gdrnpp_bop2022_torch.datasets.meta import get_meta
+    K = get_meta("ycbv").camera_matrix.astype(np.float64)
+    sdir = os.path.join(root, "train_pbr", "000000")
+    for sub in ("rgb", "mask", "mask_visib"):
+        os.makedirs(os.path.join(sdir, sub))
+    H, W = 480, 640
+    gt, info, cam = {}, {}, {}
+    yy, xx = np.mgrid[0:H, 0:W]
+    for im in range(n_images):
+        depth, shade, objs = np.zeros((H, W)), np.zeros((H, W)), []
+        for o in rs.choice(np.arange(1, 22), DETS_PER_IMAGE, replace=False):
+            ax = axes_mm[o - 1] * 1e-3
+            R = random_rotation(rs)
+            z = rs.uniform(0.7, 1.3)
+            u, v = rs.uniform(90, W - 90), rs.uniform(90, H - 90)
+            t = z * pixel_rays(K, np.array([u]), np.array([v]))[0]
+            r = int(K[0, 0] * ax.max() / (z - ax.max())) + 2
+            x0, x1 = max(int(u) - r, 0), min(int(u) + r + 1, W)
+            y0, y1 = max(int(v) - r, 0), min(int(v) + r + 1, H)
+            d, _ = ellipsoid_hits(pixel_rays(K, xx[y0:y1, x0:x1].ravel().astype(float),
+                                             yy[y0:y1, x0:x1].ravel().astype(float)), R, t, ax)
+            d = d.reshape(y1 - y0, x1 - x0)
+            win = depth[y0:y1, x0:x1]
+            front = (d > 0) & ((win == 0) | (d < win))
+            win[front] = d[front]
+            shade[y0:y1, x0:x1][front] = 60 + 9 * o
+            objs.append((int(o), R, t, y0, x0, d))
+        gt[str(im)], info[str(im)] = [], []
+        for inst, (o, R, t, y0, x0, d) in enumerate(objs):
+            full = np.zeros((H, W), np.uint8)
+            full[y0:y0 + d.shape[0], x0:x0 + d.shape[1]] = (d > 0) * 255
+            vis = full * (depth == np.pad(d, ((y0, H - y0 - d.shape[0]),
+                                              (x0, W - x0 - d.shape[1]))))
+            cv2.imwrite(os.path.join(sdir, "mask", f"{im:06d}_{inst:06d}.png"), full)
+            cv2.imwrite(os.path.join(sdir, "mask_visib", f"{im:06d}_{inst:06d}.png"),
+                        vis.astype(np.uint8))
+            ys, xs = np.nonzero(full)
+            box = [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                   int(ys.max() - ys.min() + 1)]
+            vy, vx = np.nonzero(vis)
+            vbox = ([int(vx.min()), int(vy.min()), int(vx.max() - vx.min() + 1),
+                     int(vy.max() - vy.min() + 1)] if len(vx) else [0, 0, 0, 0])
+            gt[str(im)].append({"obj_id": o, "cam_R_m2c": R.ravel().tolist(),
+                                "cam_t_m2c": (t * 1000).tolist()})
+            info[str(im)].append({"bbox_obj": box, "bbox_visib": vbox,
+                                  "visib_fract": float(len(vx) / len(xs))})
+        img = (np.stack([shade + xx * 0.1, shade * 0.8 + yy * 0.1, shade * 0.6], -1)
+               + rs.randint(0, 30, (H, W, 3))) % 256
+        cv2.imwrite(os.path.join(sdir, "rgb", f"{im:06d}.png"), img.astype(np.uint8))
+        cam[str(im)] = {"cam_K": K.ravel().tolist(), "depth_scale": 0.1}
+    save_json(os.path.join(sdir, "scene_gt.json"), gt)
+    save_json(os.path.join(sdir, "scene_gt_info.json"), info)
+    save_json(os.path.join(sdir, "scene_camera.json"), cam)
+
+
+def _train_b2(card, records, bank, meta):
+    """B2 in attribute mode at one training batch's render (TRAIN_BATCH ROIs
+    x 64^2 x the decimated bank) vs plain, and its times."""
+    from gdrnpp_bop2022_torch.datasets.train_loader import GdrnTrainLoader
+    from gdrnpp_bop2022_torch.geometry.camera import centered_crop_K
+    from gdrnpp_bop2022_torch.ops.raster import render_depth_xyz_cuda
+    from gdrnpp_bop2022_torch.ops.rasterizer import render_depth_xyz_batch
+    loader = GdrnTrainLoader(records, TRAIN_BATCH, meta.width, meta.height, seed=SEED,
+                             num_workers=1)
+    try:
+        hb = next(loader)
+    finally:
+        loader.close()
+    dev = lambda k: torch.as_tensor(hb[k]).cuda()        # noqa: E731
+    lab = dev("labels").long()
+    inp = (torch.as_tensor(bank.verts).cuda()[lab], torch.as_tensor(bank.faces).cuda()[lab],
+           dev("gt_rots"), dev("gt_transes"),
+           centered_crop_K(dev("Ks"), dev("centers"), dev("scales"), 64), 64, 64)
+    F = inp[1].shape[1]
+    err = _raster_case(f"training batch B={TRAIN_BATCH} 64x64 F={F}", *inp, tag="[10/10]")
+    call = lambda: render_depth_xyz_cuda(*inp)                      # noqa: E731
+    bd = raster_bound(*inp)
+    # hot by the profiler: events around back-to-back calls of ~40 us time
+    # the host's enqueue
+    t = {"ms": device_ms(call, kernels=B2_KERNELS), "cold_ms": cold_ms(call),
+         "plain_ms": cuda_ms(lambda: render_depth_xyz_batch(*inp, max_block=PLAIN_MAX_BLOCK),
+                             iters=3, warmup=1),
+         "bound_ms": bd["bound_ms"], "max_abs_err": err, "faces": F}
+    log(f"[10/10] B2 attribute mode at the training batch ({TRAIN_BATCH} ROIs x 64^2 x {F} "
+        f"faces, decimated): hot {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({bd['pairs']:.4e} pixel-face "
+        f"pairs in the boxes, {bd['bound_by']}); faces per tile mean "
+        f"{float(bd['per_tile'].float().mean()):.1f}  [{card}]")
+    return t
+
+
+def _train_parity(card, records, bank, meta):
+    """One fp32 step of the tiny config on the card and on the CPU from the
+    same weights and batch (built once on the CPU): losses, grads and the
+    params after the step."""
+    from gdrnpp_bop2022_torch.config import Config, replace_cfg
+    from gdrnpp_bop2022_torch.datasets.train_loader import GdrnTrainLoader
+    from gdrnpp_bop2022_torch.engine.train_state import create_train_state
+    from gdrnpp_bop2022_torch.engine.train_step import (forward_outputs, loss_and_metrics,
+                                                        make_train_step)
+    from gdrnpp_bop2022_torch.engine.trainer import device_bank, prep_train_batch
+    from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
+    from gdrnpp_bop2022_torch.solver.lr_scheduler import build_lr_scheduler
+    from gdrnpp_bop2022_torch.solver.ranger import build_optimizer
+    from gdrnpp_bop2022_torch.utils.weights import seeded_state_dict
+    cfg = replace_cfg(Config(), TRAIN_TINY)
+    loader = GdrnTrainLoader(records, 4, meta.width, meta.height, seed=SEED + 1, num_workers=1)
+    try:
+        hb = next(loader)
+    finally:
+        loader.close()
+    R = cfg.model.pose_net.geo_head.num_regions
+    batch_cpu = prep_train_batch(hb, device_bank(bank, R, "cpu"), cfg, "cpu")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        bnk = device_bank(bank, R, dev)
+        batch = {k: v.to(dev) for k, v in batch_cpu.items()}
+        model = build_gdrn(cfg, device=dev, train=True)
+        model.load_state_dict(seeded_state_dict(model, SEED + 9), strict=True)
+        total, _ = loss_and_metrics(cfg, forward_outputs(model, batch), batch,
+                                    bnk["sym_bank"], bnk["sym_mask"])
+        total.backward()
+        grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+        state = create_train_state(model, build_optimizer(cfg, build_lr_scheduler(cfg, 10),
+                                                          model))
+        metrics = make_train_step(cfg, bnk["sym_bank"], bnk["sym_mask"])(state, batch)
+        res[dev] = ({k: float(v) for k, v in metrics.items()}, grads,
+                    {n: p.detach().cpu() for n, p in model.named_parameters()})
+        del model, state
+    (mg, gg, pg), (mc, gc, pcpu) = res["cuda"], res["cpu"]
+    loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1.0) for k in mc)
+    grad_err = max(float((gg[n] - gc[n]).abs().max()) / max(float(gc[n].abs().max()), 1e-12)
+                   for n in gc)
+    par_err = max(float((pg[n] - pcpu[n]).abs().max()) / max(float(pcpu[n].abs().max()), 1e-12)
+                  for n in pcpu)
+    check(loss_err <= TRAIN_PARITY_LOSS_TOL and grad_err <= TRAIN_PARITY_GRAD_TOL
+          and par_err <= TRAIN_PARITY_PARAM_TOL,
+          f"training step card vs CPU: losses {loss_err}, grads {grad_err}, params {par_err}")
+    log(f"[10/10] one fp32 training step of the tiny config (convnext_tiny 64->16, 21 "
+        f"classes, batch 4, Ranger at {cfg.solver.base_lr}), card (B1 forward and backward "
+        f"kernels) vs CPU (plain), TF32 off, same weights and batch: losses max rel diff "
+        f"{loss_err:.2e} (limit {TRAIN_PARITY_LOSS_TOL}), grads max diff / max|grad| per "
+        f"tensor {grad_err:.2e} (limit {TRAIN_PARITY_GRAD_TOL}), params after the step "
+        f"{par_err:.2e} (limit {TRAIN_PARITY_PARAM_TOL})")
+
+
+def _train_profile(card, cfg, state, records, bank, meta):
+    """Where a training step's device time goes: torch.profiler over
+    TRAIN_PROFILE_STEPS steps (host prep of one loader batch included, the
+    loader's wait not): kernel time by name, and the device's busy share of
+    the steps' wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from gdrnpp_bop2022_torch.datasets.train_loader import GdrnTrainLoader
+    from gdrnpp_bop2022_torch.engine.train_step import make_train_step
+    from gdrnpp_bop2022_torch.engine.trainer import device_bank, prep_train_batch
+    loader = GdrnTrainLoader(records, TRAIN_BATCH, meta.width, meta.height, seed=SEED + 3)
+    try:
+        hb = next(loader)
+    finally:
+        loader.close()
+    bnk = device_bank(bank, cfg.model.pose_net.geo_head.num_regions, "cuda")
+    step = make_train_step(cfg, bnk["sym_bank"], bnk["sym_mask"])
+    step(state, prep_train_batch(hb, bnk, cfg, "cuda"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PROFILE_STEPS):
+            step(state, prep_train_batch(hb, bnk, cfg, "cuda"))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILE_STEPS
+    from torch.autograd import DeviceType
+    dev = lambda e: (getattr(e, "self_device_time_total", None)          # noqa: E731
+                     or getattr(e, "self_cuda_time_total", 0.0))
+    # device events only, without user annotations (the optimizer's
+    # record_function range spans its kernels; a CPU op's entry repeats its
+    # kernels' time): kernels and copies
+    ev = [(e.key, dev(e) / 1e3 / TRAIN_PROFILE_STEPS, e.count // TRAIN_PROFILE_STEPS)
+          for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev(e) > 0
+          and not getattr(e, "is_user_annotation", False)]
+    busy = sum(ms for _, ms, _ in ev)
+    ev.sort(key=lambda e: -e[1])
+    log(f"[10/10] profiled training step at batch {TRAIN_BATCH} ({TRAIN_PROFILE_STEPS} steps, "
+        f"host prep included): {wall_ms:.2f} ms wall, {busy:.2f} ms of device time "
+        f"({100 * busy / wall_ms:.1f}% busy), {sum(c for *_, c in ev)} kernels and copies; "
+        f"top (ms per step, count): " + "; ".join(
+            f"{k[:70]} {ms:.2f} ({c})" for k, ms, c in ev[:TRAIN_PROFILE_TOP]) + f"  [{card}]")
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "top": [(k[:70], ms, c) for k, ms, c in ev[:TRAIN_PROFILE_TOP]]}
+
+
+def _trainable_loss(cfg, model, batch, bnk):
+    """(total_loss, total_loss less the region CE's closed-form constant) of
+    `model` on `batch`, no gradient. The constant is what _masked_sum_ce adds
+    for the pixels outside the mask: region_lw x (pixels - n_mask) x
+    log(R + 1) / n_mask; the remainder is the sum of every trainable term."""
+    from gdrnpp_bop2022_torch.engine.train_step import forward_outputs, loss_and_metrics
+    lc = cfg.model.pose_net.loss
+    check(lc.xyz_loss_type == "L1", "CE_coor xyz adds a constant of its own")
+    with torch.no_grad():
+        out = forward_outputs(model, batch)
+        total, _ = loss_and_metrics(cfg, out, batch, bnk["sym_bank"], bnk["sym_mask"])
+        m = batch[f"gt_mask_{lc.region_loss_mask_gt}"].float()
+        n = m.sum()
+        const = (lc.region_lw * (m.numel() - n) * math.log(out["region"].shape[-1])
+                 / n.clamp_min(1.0))
+    return float(total), float(total - const)
+
+
+def phase_train(card, scene, tmp):
+    """GDRN training on the card: the synthetic train split, the B1 backward
+    check, B2's attribute mode at a training batch, card vs CPU on one tiny
+    step, the flagship recipe for TRAIN_STEPS steps through train_gdrn, and
+    its checkpoint restored on the card bit for bit."""
+    from gdrnpp_bop2022_torch.bop.models3d import ModelBank
+    from gdrnpp_bop2022_torch.config import parse_opts, replace_cfg
+    from gdrnpp_bop2022_torch.configs import ycbv_convnext_base
+    from gdrnpp_bop2022_torch.engine.checkpoint import CheckpointManager
+    from gdrnpp_bop2022_torch.datasets.train_loader import GdrnTrainLoader
+    from gdrnpp_bop2022_torch.engine.train_state import create_train_state
+    from gdrnpp_bop2022_torch.engine.trainer import device_bank, prep_train_batch, train_gdrn
+    from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
+    from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm, layer_norm_backward
+    from gdrnpp_bop2022_torch.ops.raster import pack_faces_cuda, render_depth_xyz_cuda
+    from gdrnpp_bop2022_torch.solver.ranger import build_optimizer
+    from gdrnpp_bop2022_torch.tools.train_gdrn import records_for
+
+    lnb = phase_ln_backward(card)
+    root = os.path.dirname(scene["models_dir"])             # <tmp>/ycbv
+    t0 = time.perf_counter()
+    make_train_split(root, scene["axes_mm"], np.random.RandomState(SEED + 30))
+    out = os.path.join(tmp, "train_out")
+    cfg = replace_cfg(ycbv_convnext_base(), parse_opts([
+        "input.color_aug.prob=0", f"datasets.root={os.path.dirname(root)!r}",
+        "datasets.train2=()", f"solver.warmup_iters={TRAIN_WARMUP}", f"output_dir={out!r}",
+        f"train.log_period={TRAIN_LOG_PERIOD}", "train.cache_gb=0",
+        "solver.checkpoint_period_epochs=1000"]))
+    pc, meta = cfg.model.pose_net, scene["meta"]
+    check(pc.backbone.name == "convnext_base" and pc.num_classes == 21 and pc.input_res == 256
+          and cfg.solver.ims_per_batch == TRAIN_BATCH and cfg.solver.optimizer == "ranger"
+          and cfg.model.compute_dtype == "bfloat16" and pc.xyz_online and pc.xyz_bp,
+          "ycbv_convnext_base() is not the flagship training recipe")
+    bank = ModelBank.from_bop_models_dir(scene["models_dir"], num_fps=pc.geo_head.num_regions,
+                                         max_faces=pc.gt_max_faces)
+    records = records_for(cfg, meta, cfg.datasets.train)
+    check(bank.faces.shape[1] <= pc.gt_max_faces and len(records) >= TRAIN_BATCH,
+          f"bank faces {bank.faces.shape}, {len(records)} records")
+    log(f"[10/10] train split: {TRAIN_IMAGES} 480x640 images x {DETS_PER_IMAGE} ellipsoids, "
+        f"mask/ and mask_visib/ PNGs from the analytic hits, {len(records)} records at "
+        f"visib >= {cfg.datasets.filter_visib_thr}; bank decimated from 4096 to "
+        f"{bank.faces.shape[1]} faces (max_faces={pc.gt_max_faces}), {pc.geo_head.num_regions} "
+        f"FPS keypoints; {time.perf_counter() - t0:.1f} s")
+    b2 = _train_b2(card, records, bank, meta)
+
+    # the batch the loss criterion reads, and the initial weights' loss on it
+    # (train_gdrn seeds torch with cfg.train.seed before it builds the model)
+    loader = GdrnTrainLoader(records, TRAIN_BATCH, meta.width, meta.height, seed=SEED + 5,
+                             num_workers=1)
+    try:
+        held_host = next(loader)
+    finally:
+        loader.close()
+    bnk = device_bank(bank, pc.geo_head.num_regions, "cuda")
+    held = prep_train_batch(held_host, bnk, cfg, "cuda")
+    torch.manual_seed(cfg.train.seed)
+    model0 = build_gdrn(cfg, train=True)
+    held_total0, held_train0 = _trainable_loss(cfg, model0, held, bnk)
+    del model0
+
+    # the flagship recipe through train_gdrn; counts from this run only
+    stats = {}
+    layer_norm.launches = layer_norm_backward.launches = 0
+    layer_norm_backward.reduce_launches = layer_norm_backward.dy_copies = 0
+    render_depth_xyz_cuda.launches = pack_faces_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_gdrn(cfg, records, bank, max_iters=TRAIN_STEPS, resume=False, meta=meta,
+                       stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = TRAIN_STEPS
+    launches = {"fwd": layer_norm.launches, "bwd": layer_norm_backward.launches,
+                "reduce": layer_norm_backward.reduce_launches,
+                "raster": render_depth_xyz_cuda.launches, "pack": pack_faces_cuda.launches}
+    check(state.step == n and next(state.model.parameters()).is_cuda, "training did not run")
+    check(launches["fwd"] == LN_PER_FORWARD * n and launches["bwd"] == LN_PER_FORWARD * n
+          and launches["reduce"] == LN_PER_FORWARD * n,
+          f"B1 launches over {n} steps: {launches}")
+    check(launches["raster"] == n and launches["pack"] == n, f"B2 launches: {launches}")
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics.json"))]
+    losses = [r["total_loss"] for r in rows]
+    pose = [sum(r[k] for k in POSE_LOSSES) for r in rows]
+    held_total, held_train = _trainable_loss(cfg, state.model, held, bnk)
+    del held, held_host
+    check(all(np.isfinite(losses)) and np.isfinite(held_train)
+          and held_train < TRAIN_LOSS_DROP * held_train0,
+          f"the trainable loss on the held batch did not fall: {held_train0} at the initial "
+          f"weights, {held_train} after {TRAIN_STEPS} steps")
+    check(any(not torch.equal(e, p) for e, p in zip(state.ema, state.model.parameters())),
+          "the EMA weights equal the parameters")
+    steps = stats["step"][TRAIN_SKIP:]
+    pct = lambda a, q: float(np.percentile(a, q))            # noqa: E731
+    mean = lambda k: float(np.mean(stats[k][TRAIN_SKIP:]))   # noqa: E731
+    rois_s = TRAIN_BATCH * len(steps) / (sum(steps) / 1e3)
+    log(f"[10/10] trained ycbv_convnext_base() (convnext_base 256->64, 21 classes, bf16, "
+        f"batch {TRAIN_BATCH}, Ranger 8e-4, flat-and-anneal with a {TRAIN_WARMUP}-step "
+        f"warmup, input.color_aug.prob=0, train.cache_gb=0) for {n} steps through "
+        f"train_gdrn in {wall:.1f} s: on a batch of {TRAIN_BATCH} held apart, total_loss "
+        f"less the region CE's constant (every trainable term) {held_train0:.4f} at the "
+        f"initial weights -> {held_train:.4f} after {n} steps ({held_train / held_train0:.3f}x, "
+        f"must fall below {TRAIN_LOSS_DROP}x; total_loss {held_total0:.4f} -> "
+        f"{held_total:.4f}); logged every {TRAIN_LOG_PERIOD} steps: pose losses "
+        f"({' + '.join(POSE_LOSSES)}) " + " ".join(f"{v:.3f}" for v in pose) + "; total_loss "
+        + " ".join(f"{v:.3f}" for v in losses))
+    log("[10/10] loss terms at the first and the last logged step: " + ", ".join(
+        f"{k} {rows[0][k]:.4f} -> {rows[-1][k]:.4f}" for k in rows[0]
+        if k.startswith("loss_") or k.startswith("error_")))
+    log(f"[10/10] training step at batch {TRAIN_BATCH} (CUDA events, steps {TRAIN_SKIP + 1}.."
+        f"{n - 1}): p50 {pct(steps, 50):.2f} ms, p99 {pct(steps, 99):.2f} ms = "
+        f"{rois_s:.1f} ROIs/s; per step mean: online batch (H2D + crops + B2 + targets) "
+        f"{mean('batch'):.2f} ms, forward + backward {mean('fwd_bwd'):.2f} ms, optimizer + "
+        f"EMA {mean('opt_ema'):.2f} ms; host wait on the loader mean "
+        f"{float(np.mean(stats['host_wait'][TRAIN_SKIP:])):.2f} ms, p99 "
+        f"{pct(stats['host_wait'][TRAIN_SKIP:], 99):.2f} ms; peak max_memory_allocated "
+        f"{peak_gb:.2f} GB  [{card}]")
+    log(f"[10/10] launches per step: B1 forward {launches['fwd'] // n}, B1 backward "
+        f"{launches['bwd'] // n} (+ {launches['reduce'] // n} reduction launches), B2 "
+        f"{launches['pack'] // n} pack + {launches['raster'] // n} raster; dy copied before "
+        f"the backward kernel {layer_norm_backward.dy_copies} times in {n} steps")
+
+    # the last step's checkpoint, restored into a fresh state on the card
+    mgr = CheckpointManager(os.path.join(out, "ckpt"))
+    check(mgr.latest_step() == n, f"checkpoint steps: {mgr.latest_step()}")
+    model = build_gdrn(cfg, train=True)
+    fresh = create_train_state(model, build_optimizer(cfg, 1e-3, model))
+    mgr.restore_latest(fresh)
+    same = (fresh.step == n
+            and all(torch.equal(p, q) for p, q in zip(state.model.parameters(),
+                                                      fresh.model.parameters()))
+            and all(torch.equal(a, b) for a, b in zip(state.ema, fresh.ema))
+            and all(torch.equal(v, fresh.optimizer.state[q][k])
+                    for p, q in zip(state.model.parameters(), fresh.model.parameters())
+                    for k, v in state.optimizer.state[p].items()))
+    check(same, "the checkpoint did not restore params, EMA and optimizer state bit for bit")
+    size_gb = os.path.getsize(mgr.path(n)) / 1e9
+    log(f"[10/10] checkpoint of step {n} ({size_gb:.2f} GB: model, EMA, Ranger state) "
+        f"restored on the card: params, EMA and optimizer state bit for bit")
+    del fresh, model
+    prof = _train_profile(card, cfg, state, records, bank, meta)
+    del state
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _train_parity(card, records, bank, meta)
+    return {"lnb": lnb, "b2": b2, "launches": launches, "profile": prof,
+            "step_p50_ms": pct(steps, 50), "rois_s": rois_s, "peak_gb": peak_gb}
 
 
 def _parity(cfg, batch, tag):
@@ -1334,7 +1895,7 @@ def _parity(cfg, batch, tag):
         tol = PARITY_ROT_TOL if k == "rot" else PARITY_REL_TOL * scale
         check(torch.isfinite(gpu[k]).all() and d <= tol,
               f"{tag} card vs CPU {k}: max abs diff {d} > {tol}")
-    log(f"[9/9] fp32 {tag}, 2 ROIs, card (B1 kernel) vs CPU (plain), TF32 "
+    log(f"[9/10] fp32 {tag}, 2 ROIs, card (B1 kernel) vs CPU (plain), TF32 "
         "off: max abs diff " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
 
 
@@ -1354,9 +1915,55 @@ def phase_parity(rb, rb_rgbd):
                       for k, v in batch.items()}, tag)
 
 
+def opt_ema_times(card):
+    """One Ranger + EMA step as train_gdrn runs it, over the flagship
+    model's parameters (configs.ycbv_convnext_base()) with seeded gradients:
+    ms per step by CUDA events around OPT_STEPS back-to-back steps (the
+    host's enqueue included, as the trainer's optimizer + EMA mark reads it)
+    and the device time of one step's kernels (profiler)."""
+    from gdrnpp_bop2022_torch.configs import ycbv_convnext_base
+    from gdrnpp_bop2022_torch.engine.train_state import create_train_state
+    from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
+    from gdrnpp_bop2022_torch.solver.ranger import build_optimizer
+    cfg = ycbv_convnext_base()
+    torch.manual_seed(SEED)
+    model = build_gdrn(cfg, train=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    for p in model.parameters():
+        p.grad = 1e-3 * torch.randn(p.shape, device="cuda", generator=g)
+    state = create_train_state(model, build_optimizer(cfg, cfg.solver.base_lr, model),
+                               cfg.model.ema_decay, cfg.model.ema_warmup_updates)
+
+    def step():
+        state.optimizer.step()
+        state.step += 1
+        state.update_ema()
+
+    t = {"ms": cuda_ms(step, iters=OPT_STEPS, warmup=3), "device_ms": device_ms(step),
+         "params": sum(1 for _ in model.parameters())}
+    # where the host's time goes (the profiler's own cost per op included)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(OPT_STEPS):
+            step()
+        torch.cuda.synchronize()
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    t["host_ms"] = sum(e.self_cpu_time_total for e in ops) / OPT_STEPS / 1e3
+    t["host_top"] = [(e.key, e.self_cpu_time_total / OPT_STEPS / 1e3, e.count / OPT_STEPS)
+                     for e in ops[:12]]
+    log(f"Ranger + EMA step over the flagship's {t['params']} parameters: "
+        f"{t['ms']:.2f} ms by events, {t['device_ms']:.2f} ms of kernels; host ops "
+        f"{t['host_ms']:.2f} ms a step under the profiler, top (self ms, calls a step): "
+        + "; ".join(f"{k} {ms:.2f} ({c:.0f})" for k, ms, c in t["host_top"]) + f"  [{card}]")
+    del state, model
+    torch.cuda.empty_cache()
+    return t
+
+
 def timing_only(root):
     """B1's and B2's times at the flagship shapes for the package under
-    `root`, through the wrappers every version has; the last line is JSON."""
+    `root`, through the wrappers every version has, and where the package
+    trains, B1's backward and a Ranger + EMA step; the last line is JSON."""
     sys.path.insert(0, os.path.abspath(root))
     import gdrnpp_bop2022_torch
     from gdrnpp_bop2022_torch.bop.models3d import ModelBank
@@ -1375,11 +1982,14 @@ def timing_only(root):
     log(f"B2 flagship depth only: wrapper hot {b2['ms']:.4f} ms, cold {b2['cold_ms']:.4f} ms,"
         f" raster kernel {b2['kernel_ms']} ms, pack kernel {b2['pack_kernel_ms']} ms "
         f"(profiler)  [{card}]")
-    print(json.dumps({"package": pkg, "card": card,
-                      "b1": {k: ln[k] for k in ("ms", "cold_ms", "library_ms",
-                                                 "library_cold_ms", "copy_cold_ms",
-                                                 "bound_ms")},
-                      "b2": b2}))
+    rec = {"package": pkg, "card": card,
+           "b1": {k: ln[k] for k in ("ms", "cold_ms", "library_ms", "library_cold_ms",
+                                     "copy_cold_ms", "bound_ms")},
+           "b2": b2}
+    if os.path.exists(os.path.join(pkg, "solver", "ranger.py")):
+        rec["b1_backward"] = ln_backward_times(card)
+        rec["opt_ema"] = opt_ema_times(card)
+    print(json.dumps(rec))
     return 0
 
 
@@ -1401,7 +2011,7 @@ def main():
         scene = make_rgbd_scene(os.path.join(tmp, "ycbv"), np.random.RandomState(SEED + 2))
         bank = ModelBank.from_bop_models_dir(scene["models_dir"])
         check(bank.faces.shape == (21, 4096, 3), f"bank faces {bank.faces.shape}")
-        log(f"[3/9] RGB-D scene and model bank written and loaded in "
+        log(f"[3/10] RGB-D scene and model bank written and loaded in "
             f"{time.perf_counter() - t0:.1f} s (analytic depth, no rendering)")
         b2 = phase_raster(card, scene, bank)
         rb, serve = phase_slice(card, os.path.join(tmp, "rgb"))
@@ -1410,8 +2020,10 @@ def main():
         pnp = phase_pnp(card, scene, bank, serve, tmp)
         del serve
         score = phase_score(card, scene, bank, tmp)
+        train = phase_train(card, scene, tmp)
+        lnb = train["lnb"]
     share = 100.0 * 2 * b2["ms"] / times["p50_ms"]
-    log(f"[5/9] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
+    log(f"[5/10] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
         f"{times['p50_ms']:.2f} ms p50 batch = {share:.2f}%  [{card}]")
     phase_parity(rb, rb_rgbd)
     bad = sorted(m for m in sys.modules
@@ -1426,7 +2038,19 @@ def main():
          "cold_ms": ln["cold_ms"], "plain_ms": ln["plain_ms"], "bound_ms": ln["bound_ms"],
          "bound_by": ln["bound_by"], "library_ms": ln["library_ms"],
          "launches_by_path": {"rgbd_depth_refine": ln_launches,
-                              **{f"rgb_{m}": pnp[m]["launches"] for m in PNP_MODES}}},
+                              **{f"rgb_{m}": pnp[m]["launches"] for m in PNP_MODES},
+                              "train": train["launches"]["fwd"]}},
+        {"name": "layer_norm_backward", "route": "cuda",
+         "source": "gdrnpp_bop2022_torch/csrc/layer_norm.cu",
+         "replaces": "gdrnpp_bop2022_tpu/ops/pallas_ln.py:26 (its VJP)",
+         "launches": train["launches"]["bwd"],
+         "reduce_launches": train["launches"]["reduce"],
+         "max_abs_err": lnb["max_abs_err"], "ms": lnb["ms"], "cold_ms": lnb["cold_ms"],
+         "plain_ms": lnb["plain_ms"], "bound_ms": lnb["bound_ms"], "bound_by": lnb["bound_by"],
+         "library_ms": lnb["library_ms"], "copy_cold_ms": lnb["copy_cold_ms"],
+         "fwd_stats_cold_ms": lnb["fwd_stats_cold_ms"],
+         "fwd_stats_bound_ms": lnb["fwd_stats_bound_ms"],
+         "launches_by_path": {"train": train["launches"]["bwd"]}},
         {"name": "render_depth_xyz", "route": "cuda",
          "source": "gdrnpp_bop2022_torch/csrc/raster.cu",
          "replaces": "gdrnpp_bop2022_tpu/ops/pallas_raster.py:53",
@@ -1434,8 +2058,9 @@ def main():
          "cold_ms": b2["cold_ms"], "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"],
          "bound_by": b2["bound_by"], "all_pairs_bound_ms": b2["all_pairs_bound_ms"],
          "library_ms": None,
-         "launches_by_path": {"rgbd_depth_refine": r_launches, "scoring": score["launches"]},
-         "vsd_shapes": b2["vsd_shapes"]}]}))
+         "launches_by_path": {"rgbd_depth_refine": r_launches, "scoring": score["launches"],
+                              "train": train["launches"]["raster"]},
+         "vsd_shapes": b2["vsd_shapes"], "train_attribute_mode": train["b2"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,10 +1,10 @@
-"""Host-side BOP dataset indexing for serving.
+"""Host-side BOP dataset indexing for serving and training.
 
-Port of the test-time part of ``gdrnpp_bop2022_tpu/datasets/bop_data.py``
-(numpy/cv2 host code, kept close to verbatim): one generic BOP reader, as
-every BOP split is scene dirs with scene_gt/scene_gt_info/scene_camera.json
-plus rgb/. The host indexes records and loads images; the crops happen on
-the device (engine/batching.py).
+Port of ``gdrnpp_bop2022_tpu/datasets/bop_data.py`` (numpy/cv2 host code,
+kept close to verbatim): one generic BOP reader, as every BOP split is
+scene dirs with scene_gt/scene_gt_info/scene_camera.json plus rgb/ (and
+mask_visib/, mask/ for training). The host indexes records and loads
+images and masks; the crops happen on the device (engine/batching.py).
 """
 
 from __future__ import annotations
@@ -177,6 +177,15 @@ def load_image(path: str) -> np.ndarray:
     elif img.shape[2] == 4:
         img = img[:, :, [2, 1, 0]]
     return np.ascontiguousarray(img)
+
+
+def load_mask(path: str) -> np.ndarray:
+    """A BOP mask PNG as float32 {0, 1} (H, W)."""
+    import cv2
+    m = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+    if m is None:
+        raise FileNotFoundError(path)
+    return (m > 127).astype(np.float32)
 
 
 def load_depth(path: str, depth_scale: float, depth_factor: float) -> np.ndarray:

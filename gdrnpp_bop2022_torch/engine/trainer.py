@@ -1,0 +1,300 @@
+"""Training driver: the do_train loop on one card.
+
+Port of ``gdrnpp_bop2022_tpu/engine/trainer.py`` (reference
+GDRN_Lite.do_train, core/gdrn_modeling/engine/engine.py:166-420) for
+stacked host batches:
+
+  BOP records -> ``GdrnTrainLoader`` (host threads: decode, DZI jitter) ->
+  ``prep_train_batch`` on the card (``build_train_batch_online``: crops,
+  kernel B2's depth + XYZ render, masks, regions, SITE targets; the PM
+  points) -> ``make_train_step`` (bf16 forward, B1 forward and backward
+  kernels, the GDRN losses, the optimizer, the EMA) -> ``metrics.json`` +
+  TensorBoard scalars and checkpoints.
+
+Only the log period reads metrics back to the host. What waits for slice 3b
+raises ``NotImplementedError`` here: colour augmentation, background
+replacement and truncation, RGB-D training, device frame pools, drop_path /
+DropBlock rates above 0, ``use_mtl`` and offline XYZ (``xyz_online=False``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..datasets.meta import get_meta
+from ..datasets.train_loader import GdrnTrainLoader
+from ..models.gdrn import build_gdrn
+from ..solver.lr_scheduler import build_lr_scheduler, flat_and_anneal_schedule
+from ..solver.ranger import build_optimizer
+from .batching import build_train_batch_online
+from .checkpoint import CheckpointManager
+from .train_state import create_train_state
+from .train_step import make_train_step
+
+
+class MetricsWriter:
+    """Console + metrics.json + TensorBoard scalars (reference
+    my_writer.py:120,268 and :53; here a dependency-free tfevents stream)."""
+
+    def __init__(self, output_dir: str, max_iter: int, log_period: int = 20,
+                 tensorboard: bool = True):
+        os.makedirs(output_dir, exist_ok=True)
+        self.path = os.path.join(output_dir, "metrics.json")
+        self.max_iter = max_iter
+        self.log_period = log_period
+        self._t_start = time.perf_counter()
+        self._t_last = self._t_start
+        self._last_iter = 0
+        self.tb = None
+        if tensorboard:
+            from ..utils.tb_writer import TensorBoardWriter
+            self.tb = TensorBoardWriter(os.path.join(output_dir, "tb"))
+
+    def write(self, iteration: int, metrics: dict, lr: float,
+              data_wait_ms: Optional[float] = None):
+        """metrics: name -> number or 0-d tensor (read here, the only host
+        read of a step). data_wait_ms: mean host time per step blocked on
+        the loader since the last write."""
+        row = {k: float(v) for k, v in metrics.items()}
+        row["iteration"] = iteration
+        row["lr"] = float(lr)
+        now = time.perf_counter()
+        n_win = max(iteration - self._last_iter, 1)
+        row["iters_per_sec"] = n_win / max(now - self._t_last, 1e-9)
+        self._t_last, self._last_iter = now, iteration
+        if data_wait_ms is not None:
+            row["data_wait_ms"] = float(data_wait_ms)
+        with open(self.path, "a") as f:
+            f.write(json.dumps(row) + "\n")
+        if self.tb is not None:
+            self.tb.add_scalars({k: v for k, v in row.items() if k != "iteration"}, iteration)
+            self.tb.flush()
+        elapsed = time.perf_counter() - self._t_start
+        done = max(iteration, 1)
+        eta = elapsed / done * (self.max_iter - done)
+        wait = f" wait {row['data_wait_ms']:.1f}ms" if "data_wait_ms" in row else ""
+        print(f"iter {iteration}/{self.max_iter} "
+              f"loss {row.get('total_loss', float('nan')):.4f} "
+              f"eR {row.get('error_R_deg', float('nan')):.2f}deg "
+              f"et {row.get('error_t_cm', float('nan')):.2f}cm "
+              f"lr {lr:.2e} {row['iters_per_sec']:.2f}it/s{wait} "
+              f"eta {eta / 60:.1f}min", flush=True)
+
+
+class StepTimer:
+    """CUDA events at named marks of each step (``begin`` starts a step);
+    inert on the CPU. ``summary()`` synchronises once at the end."""
+
+    def __init__(self, enabled: bool):
+        self.enabled = enabled
+        self.steps = []
+
+    def begin(self):
+        if self.enabled:
+            self.steps.append([])
+            self.mark("start")
+
+    def mark(self, name: str):
+        if self.enabled:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.steps[-1].append((name, ev))
+
+    def summary(self) -> dict:
+        """Per step: ms from each mark to the next (keyed by the later
+        mark's name), and ``step`` = start to the next step's start."""
+        if not self.steps:
+            return {}
+        torch.cuda.synchronize()
+        out = {}
+        for i, marks in enumerate(self.steps):
+            for (_, a), (name, b) in zip(marks, marks[1:]):
+                out.setdefault(name, []).append(a.elapsed_time(b))
+            if i + 1 < len(self.steps):
+                out.setdefault("step", []).append(marks[0][1].elapsed_time(self.steps[i + 1][0][1]))
+        return out
+
+
+def check_slice(cfg: Config) -> None:
+    """Raise on what the port's trainer does not do yet (slice 3b)."""
+    pc, inp = cfg.model.pose_net, cfg.input
+    later = []
+    if not pc.xyz_online:
+        later.append("pose_net.xyz_online=False (offline XYZ)")
+    if inp.color_aug.prob > 0:
+        later.append(f"input.color_aug.prob={inp.color_aug.prob} (colour augmentation)")
+    if inp.change_bg_prob > 0 and inp.bg_images_dir:
+        later.append("input.change_bg_prob > 0 with bg_images_dir (background replacement)")
+    if inp.truncate_fg:
+        later.append("input.truncate_fg (foreground truncation)")
+    if inp.with_depth:
+        later.append("input.with_depth (RGB-D training, depth augmentation)")
+    if cfg.train.device_pool_frames > 0:
+        later.append("train.device_pool_frames > 0 (device frame pools)")
+    if pc.pnp_net.drop_prob > 0:
+        later.append(f"pnp_net.drop_prob={pc.pnp_net.drop_prob} (DropBlock in training)")
+    if pc.loss.use_mtl:
+        later.append("loss.use_mtl (learned task weights)")
+    if later:
+        raise NotImplementedError("the port's trainer does not do " + "; ".join(later)
+                                  + " yet: it arrives with slice 3b")
+
+
+def device_bank(model_bank, num_regions: int, device) -> dict:
+    """The model bank's arrays the online batch and the losses read, on device."""
+    t = lambda a: torch.as_tensor(np.asarray(a)).to(device)    # noqa: E731
+    sym_bank, sym_mask = model_bank.sym_bank()
+    return {"verts": t(model_bank.verts).float(), "faces": t(model_bank.faces),
+            "fps_points": t(model_bank.fps_points[:, :num_regions]).float(),
+            "extents": t(model_bank.extents).float(), "points": t(model_bank.points).float(),
+            "sym_bank": sym_bank.to(device), "sym_mask": sym_mask.to(device)}
+
+
+def prep_train_batch(host_batch: dict, bank: dict, cfg: Config, device) -> dict:
+    """A host batch of the loader -> the training batch on ``device``:
+    ``build_train_batch_online`` plus the PM loss's model points."""
+    pc = cfg.model.pose_net
+    d = {k: torch.as_tensor(v).to(device) for k, v in host_batch.items()}
+    batch = build_train_batch_online(
+        d["images"], d["img_idx"], d["centers"], d["scales"], d["bboxes_xyxy"], d["Ks"],
+        d["labels"], d["gt_rots"], d["gt_transes"], d["mask_visib"], d["mask_full"],
+        d["mask_idx"], bank["verts"], bank["faces"], bank["fps_points"], bank["extents"],
+        input_res=pc.input_res, output_res=pc.output_res,
+        pixel_mean=tuple(cfg.model.pixel_mean),
+        pixel_std=tuple(cfg.model.pixel_std),
+        xyz_bin=pc.geo_head.xyz_num_bins if pc.loss.xyz_loss_type == "CE_coor" else 0,
+        coord_2d_type=pc.pnp_net.coord_2d_type, xyz_bp=pc.xyz_bp)
+    batch["gt_points"] = bank["points"][batch["roi_labels"]]
+    return batch
+
+
+def _load_pretrained_backbone(model, path: str) -> None:
+    """A timm-named ConvNeXt state dict (optionally under "model", with or
+    without a "backbone." prefix) into model.backbone; every backbone
+    parameter must be in it."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    sd = sd.get("model", sd)
+    sd = {k[len("backbone."):] if k.startswith("backbone.") else k: v for k, v in sd.items()}
+    missing, _ = model.backbone.load_state_dict(sd, strict=False)
+    if missing:
+        raise KeyError(f"pretrained backbone {path} lacks {missing[:3]} ...")
+
+
+def train_gdrn(cfg: Config, records, model_bank, records2=None,
+               max_iters: Optional[int] = None, resume: bool = True, meta=None,
+               eval_fn=None, device="cuda", stats: Optional[dict] = None):
+    """Train GDRN on ``device`` (the card unless the caller asks for the
+    CPU). records: InstanceRecord list; model_bank: ModelBank; meta:
+    DatasetMeta (from cfg.datasets.train when omitted); eval_fn:
+    callable(state, iteration) -> dict, run every cfg.train.eval_period
+    iterations, its results appended to metrics.json. With ``stats`` (a
+    dict), fills in per-step device times of each phase (CUDA events, on
+    the card) and host waits on the loader. Returns the TrainState."""
+    check_slice(cfg)
+    device = torch.device(device)
+    if meta is None and cfg.datasets.train:
+        meta = get_meta(cfg.datasets.train[0])
+    im_w = meta.width if meta else 640
+    im_h = meta.height if meta else 480
+    pc, sc = cfg.model.pose_net, cfg.solver
+
+    iters_per_epoch = max(len(records) // sc.ims_per_batch, 1)
+    total_iters = max_iters or sc.total_epochs * iters_per_epoch
+    torch.manual_seed(cfg.train.seed)
+    model = build_gdrn(cfg, device=device, train=True)
+    if pc.backbone.pretrained:
+        _load_pretrained_backbone(model, pc.backbone.pretrained)
+    # the schedule spans the run actually made (max_iters overrides epochs)
+    if sc.lr_scheduler == "flat_and_anneal":
+        sched = flat_and_anneal_schedule(
+            base_lr=sc.base_lr, total_iters=total_iters, warmup_iters=sc.warmup_iters,
+            warmup_factor=sc.warmup_factor, warmup_method=sc.warmup_method,
+            anneal_point=sc.anneal_point, anneal_method=sc.anneal_method)
+    else:
+        sched = build_lr_scheduler(cfg, iters_per_epoch)
+    state = create_train_state(model, build_optimizer(cfg, sched, model),
+                               ema_decay=cfg.model.ema_decay,
+                               ema_warmup=cfg.model.ema_warmup_updates)
+    ckpt = CheckpointManager(os.path.join(cfg.output_dir, "ckpt"), max_to_keep=sc.max_to_keep)
+    if resume and ckpt.restore_latest(state) is not None:
+        print(f"resumed from iter {state.step}", flush=True)
+    start_iter = state.step
+
+    bank = device_bank(model_bank, pc.geo_head.num_regions, device)
+    step_fn = make_train_step(cfg, bank["sym_bank"], bank["sym_mask"])
+    writer = MetricsWriter(cfg.output_dir, total_iters, cfg.train.log_period,
+                           tensorboard=cfg.train.tensorboard)
+    ckpt_period = max(sc.checkpoint_period_epochs * iters_per_epoch, 1)
+    timer = StepTimer(enabled=stats is not None and device.type == "cuda")
+    waits = []
+
+    loader = GdrnTrainLoader(
+        records, sc.ims_per_batch, im_w, im_h, records2=records2,
+        ratio2=cfg.datasets.train2_ratio, dzi_pad_scale=cfg.input.dzi_pad_scale,
+        dzi_scale_ratio=cfg.input.dzi_scale_ratio, dzi_shift_ratio=cfg.input.dzi_shift_ratio,
+        dzi_type=cfg.input.dzi_type, bbox_type=cfg.model.bbox_type, seed=cfg.train.seed,
+        sampler=cfg.datasets.sampler, repeat_thresh=cfg.datasets.repeat_thresh,
+        num_workers=cfg.train.num_workers, num_builders=cfg.train.num_builders,
+        cache_gb=cfg.train.cache_gb)
+    try:
+        t_w = time.perf_counter()
+        host_batch = next(loader)
+        waits.append(time.perf_counter() - t_w)
+        data_wait_s = waits[-1]
+        for it in range(start_iter, total_iters):
+            timer.begin()
+            batch = prep_train_batch(host_batch, bank, cfg, device)
+            timer.mark("batch")
+            metrics = step_fn(state, batch, timer)
+            if (it + 1) % cfg.train.log_period == 0 or it == start_iter:
+                n_win = (it - start_iter) % cfg.train.log_period + 1
+                writer.write(it + 1, metrics, sched(it),
+                             data_wait_ms=data_wait_s / n_win * 1000.0)
+                data_wait_s = 0.0
+            if (it + 1) % ckpt_period == 0 or (it + 1) == total_iters:
+                ckpt.save(state, it + 1)
+            if (eval_fn is not None and cfg.train.eval_period > 0
+                    and ((it + 1) % cfg.train.eval_period == 0 or (it + 1) == total_iters)):
+                eval_metrics = eval_fn(state, it + 1)
+                if eval_metrics:
+                    row = {f"val/{k}": float(v) for k, v in eval_metrics.items()}
+                    row["iteration"] = it + 1
+                    with open(writer.path, "a") as f:
+                        f.write(json.dumps(row) + "\n")
+                    print(f"eval @ {it + 1}: {eval_metrics}", flush=True)
+            if cfg.train.vis_period > 0 and (it + 1) % cfg.train.vis_period == 0:
+                _dump_batch(batch, cfg.output_dir, it + 1, writer)
+            if it + 1 < total_iters:
+                t_w = time.perf_counter()
+                host_batch = next(loader)
+                waits.append(time.perf_counter() - t_w)
+                data_wait_s += waits[-1]
+    finally:
+        loader.close()
+    if stats is not None:
+        stats.update(timer.summary())
+        stats["host_wait"] = [1e3 * w for w in waits]
+    return state
+
+
+def _dump_batch(batch: dict, output_dir: str, iteration: int, writer: MetricsWriter) -> None:
+    """Training-batch tiles (reference TRAIN.VIS, engine.py:371-397)."""
+    from ..utils.vis import grid_show
+    tiles, titles = [], []
+    for i in range(min(4, batch["roi_img"].shape[0])):
+        tiles += [batch["roi_img"][i].float().cpu().numpy() * 127 + 127,
+                  batch["gt_xyz"][i].float().cpu().numpy(),
+                  batch["gt_mask_visib"][i].float().cpu().numpy(),
+                  batch["gt_region"][i].float().cpu().numpy()]
+        titles += [f"img{i}", "gt_xyz", "mask", "region"]
+    canvas = grid_show(tiles, titles, out_path=os.path.join(output_dir, f"vis_{iteration:06d}.png"))
+    if writer.tb is not None:
+        writer.tb.add_image("train/batch_vis", canvas, iteration)
+        writer.tb.flush()

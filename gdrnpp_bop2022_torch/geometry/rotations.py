@@ -1,7 +1,7 @@
 """Rotation representations and allocentric/egocentric conversion.
 
 Port of ``gdrnpp_bop2022_tpu/geometry/rotations.py`` (the functions the pose
-decode needs). Every function takes leading batch dimensions and runs in
+decode and the train-time pose error need). Every function takes leading batch dimensions and runs in
 the dtype of its input; the pose decode calls them in fp32.
 """
 
@@ -73,3 +73,9 @@ def allo_to_ego_mat(translation: torch.Tensor, rot_allo: torch.Tensor,
     """Allocentric rotations (..., 3, 3) -> egocentric, given translations."""
     q_corr = allo_to_ego_quat_correction(translation, eps=eps)
     return torch.matmul(quat_to_mat(q_corr), rot_allo)
+
+
+def angular_distance(r1: torch.Tensor, r2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Geodesic angle (radians) between batches of rotation matrices."""
+    tr = (r1 * r2).sum(dim=(-2, -1))
+    return torch.arccos(((tr - 1.0) * 0.5).clamp(-1.0 + eps, 1.0 - eps))

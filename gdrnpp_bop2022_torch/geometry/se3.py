@@ -13,6 +13,12 @@ import torch
 from .rotations import allo_to_ego_mat
 
 
+def transform_pts(pts: torch.Tensor, R: torch.Tensor, t: torch.Tensor | None = None) -> torch.Tensor:
+    """Rigid transform of point sets: pts (B, N, 3), R (B, 3, 3), t (B, 3)."""
+    out = torch.einsum("bij,bnj->bni", R, pts)
+    return out if t is None else out + t[:, None, :]
+
+
 def pose_from_centroid_z_rel(rot_allo, centroid_rel, z_rel, roi_cams,
                              roi_centers, resize_ratios, roi_whs,
                              eps: float = 1e-4, is_allo: bool = True,

@@ -68,7 +68,7 @@ class ConvNeXtBlock(nn.Module):
     def forward(self, x):
         if self.training and self.drop_path > 0.0:
             raise NotImplementedError(
-                "ConvNeXt drop_path in training arrives with GDRN training (slice 3)")
+                "ConvNeXt drop_path in training arrives with slice 3b")
         h = conv2d(self.conv_dw, x, self.dtype)
         h = h.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
         h = self.norm.forward_nhwc(h)

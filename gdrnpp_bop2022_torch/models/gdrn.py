@@ -217,12 +217,14 @@ class GDRN(nn.Module):
         }
 
 
-def build_gdrn(cfg: Config, device="cuda") -> GDRN:
-    """GDRN for ``cfg`` in ``cfg.model.compute_dtype``, in eval mode, on
-    ``device`` (the card unless the caller asks for the CPU)."""
+def build_gdrn(cfg: Config, device="cuda", train: bool = False) -> GDRN:
+    """GDRN for ``cfg`` in ``cfg.model.compute_dtype`` on ``device`` (the
+    card unless the caller asks for the CPU), in eval mode, or in train mode
+    for the trainer (the forward is the same; drop_path and DropBlock, which
+    raise in training when their rates are above 0, are all it switches)."""
     model = GDRN(cfg.model.pose_net, dtype=_DTYPES[cfg.model.compute_dtype],
                  depth_in_chans=3 if cfg.input.bp_depth else 1)
-    return model.to(device).eval()
+    return model.to(device).train(train)
 
 
 def normalize_image(img: torch.Tensor, pixel_mean, pixel_std) -> torch.Tensor:

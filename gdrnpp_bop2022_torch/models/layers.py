@@ -158,8 +158,8 @@ class Upsample2x(nn.Module):
 
 
 class DropBlock2D(nn.Module):
-    """DropBlock: the identity at inference. Its training form arrives with
-    GDRN training."""
+    """DropBlock: the identity at inference and at drop_prob 0. Its training
+    form with drop_prob > 0 arrives with slice 3b."""
 
     def __init__(self, drop_prob: float = 0.0, block_size: int = 5):
         super().__init__()
@@ -169,5 +169,5 @@ class DropBlock2D(nn.Module):
     def forward(self, x):
         if self.training and self.drop_prob > 0.0:
             raise NotImplementedError(
-                "DropBlock2D in training arrives with GDRN training (slice 3)")
+                "DropBlock2D in training arrives with slice 3b")
         return x

@@ -1,4 +1,4 @@
-"""Channel-last LayerNorm: kernel B1 and its plain version.
+"""Channel-last LayerNorm: kernel B1 (forward and backward) and its plain version.
 
 ``layer_norm`` normalises the last axis of ``x`` with fp32 statistics
 (eps 1e-6 by default) and returns ``x.dtype``. It is the port of
@@ -6,15 +6,22 @@
 ConvNeXt's 40 LayerNorms call.
 
   * a tensor on the CPU goes to ``layer_norm_ref``: fp32 upcast,
-    ``F.layer_norm``, cast back;
-  * a tensor on a CUDA device goes to the hand-written kernel
+    ``F.layer_norm``, cast back; autograd differentiates it (the plain
+    backward, ``layer_norm_backward_ref``);
+  * a tensor on a CUDA device goes to the hand-written kernels of
     ``csrc/layer_norm.cu`` (built with nvcc at first use), or the call
-    raises. There is no fallback on the card. ``_vector_path`` picks the
-    kernel's path: 16-byte accesses where C and every pointer allow them,
-    else one element per access.
+    raises. There is no fallback on the card. Where a gradient is needed,
+    ``LayerNormFn`` runs the forward kernel with its per-row fp32 mean and
+    rstd saved, and its backward is the backward kernel
+    (``layer_norm_backward``). ``_vector_path`` picks each kernel's path:
+    16-byte accesses where C and every pointer allow them, else one element
+    per access.
 
-``layer_norm.launches`` counts kernel launches, so a run can show that its
-main path went through the kernel.
+``layer_norm.launches`` counts forward kernel launches;
+``layer_norm_backward.launches`` counts backward kernel launches and
+``layer_norm_backward.reduce_launches`` the launches of its fixed-order
+reduction of dweight/dbias; ``layer_norm_backward.dy_copies`` counts
+incoming gradients that were not contiguous (rows, C) and had to be copied.
 """
 
 from __future__ import annotations
@@ -25,8 +32,9 @@ import torch
 import torch.nn.functional as F
 
 MAX_CHANNELS = 1024
+MAX_BWD_BLOCKS = 1024          # csrc/layer_norm.cu kMaxBwdBlocks
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+_fns = None
 
 
 def layer_norm_ref(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -36,25 +44,42 @@ def layer_norm_ref(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                         eps).to(x.dtype)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def layer_norm_backward_ref(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+                            eps: float = 1e-6):
+    """Plain backward: autograd through ``layer_norm_ref``. Returns
+    (dx in x's dtype, dweight fp32, dbias fp32)."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(True)
+        w = weight.detach().float().requires_grad_(True)
+        b = torch.zeros_like(w, requires_grad=True)
+        y = layer_norm_ref(xr, w, b, eps)
+        return torch.autograd.grad(y, (xr, w, b), dy)
+
+
+def _kernels():
+    global _fns
+    if _fns is None:
         from ..utils.cuda_build import load_kernel_library
-        fn = load_kernel_library("layer_norm").gdrn_layer_norm_fwd
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        lib = load_kernel_library("layer_norm")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fwd = lib.gdrn_layer_norm_fwd
+        fwd.argtypes = [p, p, p, p, p, p, i, i, ctypes.c_float, i, i, p]
+        fwd.restype = i
+        bwd = lib.gdrn_layer_norm_bwd
+        bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+        bwd.restype = i
+        _fns = (fwd, bwd)
+    return _fns
 
 
-def _vector_path(x, y, weight, bias) -> bool:
+def _vector_path(*tensors) -> bool:
     """True where the kernel can move 16 bytes per access: a row of C
     values is a whole number of 16-byte vectors (C % 8 in bf16, C % 4 in
-    fp32) and x, y, weight and bias all start on a 16-byte boundary."""
+    fp32; C and the element size from the first tensor) and every tensor
+    starts on a 16-byte boundary."""
+    x = tensors[0]
     return ((x.shape[-1] * x.element_size()) % 16 == 0
-            and all(t.data_ptr() % 16 == 0 for t in (x, y, weight, bias)))
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _check_cuda_args(x, weight, bias):
@@ -72,12 +97,99 @@ def _check_cuda_args(x, weight, bias):
         if p.dtype != torch.float32 or p.shape != (C,) or not p.is_contiguous():
             raise ValueError(f"{name} must be a contiguous ({C},) float32 "
                              f"tensor, got {p.dtype} {tuple(p.shape)}")
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
-                                    or bias.requires_grad):
-        raise NotImplementedError("layer_norm kernel is forward-only; its "
-                                  "backward arrives with GDRN training")
     if x.numel() // C > torch.iinfo(torch.int32).max:
         raise ValueError("layer_norm kernel takes fewer than 2**31 rows")
+
+
+def _forward_cuda(x, weight, bias, eps, with_stats: bool):
+    """One forward launch: y, and (mean, rstd) (rows,) fp32 when with_stats."""
+    _check_cuda_args(x, weight, bias)
+    y = torch.empty_like(x)
+    rows = x.numel() // x.shape[-1]
+    mean = rstd = None
+    if with_stats:
+        mean = torch.empty(rows, dtype=torch.float32, device=x.device)
+        rstd = torch.empty_like(mean)
+    if rows == 0:
+        return y, mean, rstd
+    with torch.cuda.device(x.device):
+        err = _kernels()[0](x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                            mean.data_ptr() if with_stats else None,
+                            rstd.data_ptr() if with_stats else None,
+                            rows, x.shape[-1], float(eps), _DTYPE_CODE[x.dtype],
+                            int(_vector_path(x, y, weight, bias)),
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"layer_norm kernel launch failed: cudaError {err}")
+    layer_norm.launches += 1
+    return y, mean, rstd
+
+
+def layer_norm_backward(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+                        mean: torch.Tensor, rstd: torch.Tensor, eps: float = 1e-6):
+    """VJP of ``layer_norm`` at x: (dx in x's dtype, dweight, dbias fp32).
+
+    On the card: the backward kernel with the forward's saved fp32 mean and
+    rstd (rows,); a dy that is not contiguous is copied first (counted in
+    ``layer_norm_backward.dy_copies``). On the CPU: ``layer_norm_backward_ref``
+    (mean and rstd unused)."""
+    if x.device.type == "cpu":
+        return layer_norm_backward_ref(dy, x, weight, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_norm_backward runs on cpu or cuda, got {x.device}")
+    C = x.shape[-1]
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} does not match x {tuple(x.shape)}")
+    if dy.dtype != x.dtype:
+        raise TypeError(f"dy is {dy.dtype}, x is {x.dtype}")
+    if not dy.is_contiguous():
+        dy = dy.contiguous()
+        layer_norm_backward.dy_copies += 1
+    _check_cuda_args(x, weight, weight)
+    rows = x.numel() // C
+    for name, s in (("mean", mean), ("rstd", rstd)):
+        if s.dtype != torch.float32 or s.shape != (rows,) or s.device != x.device:
+            raise ValueError(f"{name} must be ({rows},) float32 on {x.device}")
+    dx = torch.empty_like(x)
+    dw = torch.empty(C, dtype=torch.float32, device=x.device)
+    db = torch.empty_like(dw)
+    if rows == 0:
+        return dx, dw.zero_(), db.zero_()
+    partial = torch.empty(2 * MAX_BWD_BLOCKS * C, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernels()[1](x.data_ptr(), dy.data_ptr(), weight.data_ptr(), mean.data_ptr(),
+                            rstd.data_ptr(), dx.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+                            db.data_ptr(), rows, C, _DTYPE_CODE[x.dtype],
+                            int(_vector_path(x, dy, weight, dx)),
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"layer_norm backward kernel launch failed: cudaError {err}")
+    layer_norm_backward.launches += 1
+    layer_norm_backward.reduce_launches += 1
+    return dx, dw, db
+
+
+layer_norm_backward.launches = 0
+layer_norm_backward.reduce_launches = 0
+layer_norm_backward.dy_copies = 0
+
+
+class LayerNormFn(torch.autograd.Function):
+    """B1 with a gradient on the card: the forward kernel saving its fp32
+    statistics, the backward kernel for the VJP."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        y, mean, rstd = _forward_cuda(x, weight, bias, eps, with_stats=True)
+        ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, rstd = ctx.saved_tensors
+        dx, dw, db = layer_norm_backward(dy, x, weight, mean, rstd, ctx.eps)
+        return dx, dw, db, None
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -87,20 +199,10 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         return layer_norm_ref(x, weight, bias, eps)
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm runs on cpu or cuda, got {x.device}")
-    _check_cuda_args(x, weight, bias)
-    y = torch.empty_like(x)
-    rows = x.numel() // x.shape[-1]
-    if rows == 0:
-        return y
-    with torch.cuda.device(x.device):
-        err = _kernel()(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                        y.data_ptr(), rows, x.shape[-1], float(eps),
-                        _DTYPE_CODE[x.dtype], int(_vector_path(x, y, weight, bias)),
-                        torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"layer_norm kernel launch failed: cudaError {err}")
-    layer_norm.launches += 1
-    return y
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return LayerNormFn.apply(x, weight, bias, eps)
+    return _forward_cuda(x, weight, bias, eps, with_stats=False)[0]
 
 
 layer_norm.launches = 0

@@ -3,8 +3,8 @@
 ``gdrnpp_bop2022_torch.config`` is a copy of ``gdrnpp_bop2022_tpu.config``
 (the port imports nothing of the JAX package). ``Config()``, the YOLOX
 config, overrides and ``parse_opts`` agree field by field, and the port's
-``ycbv_convnext_base_rgbd()`` equals the ``cfg`` of
-configs/gdrn/ycbv_convnext_base_rgbd.py.
+``ycbv_convnext_base_rgbd()`` and ``ycbv_convnext_base()`` equal the ``cfg``
+of configs/gdrn/ycbv_convnext_base_rgbd.py and configs/gdrn/ycbv_convnext_base.py.
 """
 
 import dataclasses
@@ -15,7 +15,7 @@ import pytest
 
 from gdrnpp_bop2022_tpu import config as jcfg
 from gdrnpp_bop2022_torch import config as tcfg
-from gdrnpp_bop2022_torch.configs import ycbv_convnext_base_rgbd
+from gdrnpp_bop2022_torch.configs import ycbv_convnext_base, ycbv_convnext_base_rgbd
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -53,15 +53,33 @@ def test_overrides_and_opts_equal_jax():
     assert tcfg.iters_per_epoch(tcfg.Config(), 1000) == jcfg.iters_per_epoch(jcfg.Config(), 1000)
 
 
-def test_rgbd_config_equals_the_config_file():
-    path = os.path.join(_ROOT, "configs", "gdrn", "ycbv_convnext_base_rgbd.py")
-    spec = importlib.util.spec_from_file_location("_rgbd_cfg_file", path)
+def _config_file(name):
+    path = os.path.join(_ROOT, "configs", "gdrn", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_{name}_cfg_file", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    got, want = _fields(ycbv_convnext_base_rgbd()), _fields(mod.cfg)
+    return mod.cfg
+
+
+def test_rgbd_config_equals_the_config_file():
+    got, want = _fields(ycbv_convnext_base_rgbd()), _fields(_config_file("ycbv_convnext_base_rgbd"))
     assert list(got) == list(want)
     for k in want:
         assert got[k] == want[k], k
     pc = ycbv_convnext_base_rgbd().model.pose_net
     assert pc.name == "gdrn_dstream_double_mask" and pc.fuse_type == "cat"
     assert ycbv_convnext_base_rgbd().val.use_depth_refine
+
+
+def test_training_config_equals_the_config_file():
+    got, want = _fields(ycbv_convnext_base()), _fields(_config_file("ycbv_convnext_base"))
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k] == want[k], k
+    cfg = ycbv_convnext_base()
+    pc = cfg.model.pose_net
+    assert (pc.backbone.name, pc.num_classes, pc.input_res, pc.output_res) == \
+        ("convnext_base", 21, 256, 64)
+    assert (cfg.solver.ims_per_batch, cfg.solver.base_lr, cfg.solver.optimizer) == \
+        (48, 8e-4, "ranger")
+    assert pc.xyz_online and pc.xyz_bp and cfg.model.compute_dtype == "bfloat16"

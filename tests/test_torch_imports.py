@@ -40,5 +40,8 @@ def test_port_imports_no_jax():
               "configs", "utils.channel_perm", "geometry.camera",
               "geometry.symmetry", "bop.models3d", "ops.rasterizer", "ops.raster",
               "eval.pnp_eval", "eval.pose_error", "eval.vsd", "eval.scorer", "ops.pnp",
-              "tools.score_csv", "tools.test_gdrn"):
+              "tools.score_csv", "tools.test_gdrn", "ops.region", "losses.gdrn_losses",
+              "solver.lr_scheduler", "solver.ranger", "engine.train_state",
+              "engine.train_step", "engine.checkpoint", "engine.trainer",
+              "datasets.train_loader", "utils.tb_writer", "utils.vis", "tools.train_gdrn"):
         assert f"gdrnpp_bop2022_torch.{m}" in out["modules"], m
