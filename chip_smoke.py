@@ -16,9 +16,12 @@ port's two served paths with weights drawn from a seed:
 
 then the evaluation path: the three PnP post modes on the RGB path, and the
 BOP scorer (VSD through B2 at image size, the port's ``score_csv`` CLI) on
-the RGB-D scene; then GDRN training (``configs.ycbv_convnext_base()`` through
-``engine.trainer.train_gdrn`` on a synthetic BOP train split); and checks the
-models on the card against the same models on the CPU in fp32. Phases:
+the RGB-D scene; then GDRN training of both BOP'22 recipes as configured
+(``configs.ycbv_convnext_base()`` and ``configs.ycbv_convnext_base_rgbd()``
+through ``engine.trainer.train_gdrn`` on a synthetic BOP train split, with
+colour, background and depth augmentation, and in pool mode); and checks the
+models on the card against the same models on the CPU in fp32. It prints its
+wall time. Phases:
 
   1. device: name, versions, power limit; build both kernels (one nvcc
      each, started together);
@@ -55,21 +58,36 @@ models on the card against the same models on the CPU in fp32. Phases:
      pair whose plan fits a bucket; the RGB-D CSV through
      ``python -m gdrnpp_bop2022_torch.tools.score_csv``;
   9. card vs CPU parity of the RGB and the RGB-D flagship in fp32 (run
-     last, after phase 10);
+     last, after phase 11);
  10. training: B1's backward kernel vs its plain version (autograd through
      layer_norm_ref) at the four ConvNeXt-base shapes at batch 48 and on the
      scalar path, with hot / cold times beside the plain version, aten's
      native_layer_norm_backward, a copy_ of the same bytes and the bound; a
-     synthetic train split (mask/ and mask_visib/ PNGs from the analytic
-     hits, scene_gt*.json) and the bank decimated to 1024 faces with 64 FPS
-     keypoints; B2's attribute mode at a training batch vs plain; the
-     flagship recipe with input.color_aug.prob=0 and a short warmup for
+     synthetic train split (RGB, analytic depth, mask/ and mask_visib/ PNGs
+     from the analytic hits, scene_gt*.json), TRAIN_BG_IMAGES backgrounds,
+     and the bank decimated to 1024 faces with 64 FPS keypoints; B2's
+     attribute mode at a training batch vs plain; background replacement and
+     cosy+aae colour augmentation on the card vs their plain versions on the
+     CPU given the same draws; the flagship recipe as configured (colour
+     augmentation at 0.8, backgrounds at 0.5) with a short warmup for
      TRAIN_STEPS steps at batch 48 through ``train_gdrn``: step time p50 /
-     p99 by CUDA events split into online batch / forward + backward /
-     optimizer + EMA, the host wait on the loader, ROIs/s, peak memory,
-     launches per step (B1 40 + 40 and 40 reductions, B2 1 + 1), a falling
-     loss (every trainable term, on a batch held apart) and EMA != params; the checkpoint restored on the card bit for
-     bit; one fp32 step of the tiny config on the card and on the CPU.
+     p99 by CUDA events split into H2D / augmentations / online batch /
+     forward + backward / optimizer + EMA, the host wait on the loader,
+     ROIs/s, peak memory, launches per step (B1 40 + 40 and 40 reductions,
+     B2 1 + 1), a falling loss (every trainable term, on a batch held apart)
+     and EMA != params; the checkpoint restored on the card bit for bit; one
+     fp32 step of the tiny config on the card and on the CPU; pool mode
+     (``train.device_pool_frames``): batches from frames kept on the card
+     equal the host batches of the same seed and draws, then a few steps
+     and the pools' stats;
+ 11. RGB-D training: ``configs.ycbv_convnext_base_rgbd()`` (two
+     convnext_base, concat fusion, depth augmentation) at batch 48 for
+     TRAIN_RGBD_STEPS steps: B1's backward at its shapes vs plain, launches
+     per step (B1 80 + 80 and 80 reductions, B2 1 + 1), the split (online
+     batch / depth aug + depth ROIs / forward + backward / optimizer + EMA),
+     peak memory, the trainable-loss criterion, EMA != params, the
+     checkpoint bit for bit, the busy share of three profiled steps, and one
+     tiny dual-stream fp32 step card vs CPU.
 
 The scene's sensor depth is analytic (ray-ellipsoid), never rendered by the
 kernel under test. Any failure raises (exit code 1). Without a CUDA device
@@ -176,7 +194,12 @@ LN_BWD_REL_TOL = 1e-4
 # card vs CPU, one fp32 step of the tiny config (tests/test_model_train_step.py
 # sizes, 21 classes, no warmup): losses relative to max(|loss|, 1); grads
 # and params after the step relative to each tensor's largest magnitude
-# (convolutions sum in another order on cuDNN and oneDNN)
+# (convolutions sum in another order on cuDNN and oneDNN). The dual stream's
+# grads differ up to 7e-4 of a tensor's largest (its 3-element fc_t bias;
+# the card's own run-to-run spread is 2-3e-6), so its params are held to
+# what that gradient difference moves them by: per tensor, the grads' limit
+# x lr x 2 max|grad| (centralization can double it), plus two fp32 ulps of
+# the tensor's largest value (the rounding of p + update)
 TRAIN_TINY = {"model.pose_net.num_classes": 21, "model.pose_net.input_res": 64,
               "model.pose_net.output_res": 16, "model.pose_net.backbone.name": "convnext_tiny",
               "model.pose_net.geo_head.feat_dim": 32, "model.pose_net.geo_head.num_gn_groups": 8,
@@ -186,6 +209,32 @@ TRAIN_TINY = {"model.pose_net.num_classes": 21, "model.pose_net.input_res": 64,
 TRAIN_PARITY_LOSS_TOL = 1e-4
 TRAIN_PARITY_GRAD_TOL = 1e-3
 TRAIN_PARITY_PARAM_TOL = 1e-5
+# the recipes' backgrounds: TRAIN_BG_IMAGES 640x480 PNGs of colour gradients
+# and noise, from the seed
+TRAIN_BG_IMAGES = 32
+# colour augmentation and background replacement on the card against their
+# plain versions on the CPU, given the same draws, on the first
+# AUG_CPU_SAMPLES images of a training batch: the background exactly (selects
+# and products by 0 or 1); cosy+aae within AUG_TOL on [0, 255] (the card
+# contracts a * b + c into one rounding, and EnhanceSharpness's factor of up
+# to 50 and the contrast and colour factors amplify a last-bit difference)
+AUG_CPU_SAMPLES = 8
+AUG_TOL = 1e-2
+# phase 11: configs.ycbv_convnext_base_rgbd() (two convnext_base) at batch
+# 48 for TRAIN_RGBD_STEPS steps (a TRAIN_WARMUP-step warmup); its trainable
+# loss on a batch held apart must fall below TRAIN_RGBD_LOSS_DROP x its
+# value at the initial weights
+TRAIN_RGBD_STEPS = 40
+TRAIN_RGBD_LOSS_DROP = 0.85
+DSTREAM = {"model.pose_net.name": "gdrn_dstream_double_mask",
+           "model.pose_net.fuse_type": "cat", "input.with_depth": True}
+# pool mode (train.device_pool_frames): POOL_BATCHES batches equal to the
+# host batches of the same seed and draws, then POOL_STEPS steps through
+# train_gdrn; POOL_FRAMES RGB frames, twice as many mask slots (fewer than
+# the split's masks: batches evict)
+POOL_FRAMES = 64
+POOL_BATCHES = 3
+POOL_STEPS = 6
 
 
 def check(cond, msg):
@@ -277,7 +326,7 @@ def kernel_ms(fn, names, iters=20, per_call=None):
 
 def phase_device():
     name = torch.cuda.get_device_name(0)
-    log(f"[1/10] device: {name} x{torch.cuda.device_count()}  torch "
+    log(f"[1/11] device: {name} x{torch.cuda.device_count()}  torch "
         f"{torch.__version__}  CUDA {torch.version.cuda}  python "
         f"{sys.version.split()[0]}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -291,7 +340,7 @@ def phase_device():
     build_kernel_libraries(["layer_norm", "raster"])    # nvcc, both at once
     for lib in ("layer_norm", "raster"):
         load_kernel_library(lib)
-    log(f"[1/10] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
+    log(f"[1/11] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s")
     return name, card
 
@@ -348,11 +397,11 @@ def ln_times(card):
         for key, v in zip(t, (k, kc, p, lib, libc, cp)):
             t[key] += n * v
         n_bytes += n * (2 * x.numel() * x.element_size() + 2 * C * 4)
-        log(f"[2/10] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
+        log(f"[2/11] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
             f"{kc:.4f} ms, plain {p:.4f} ms, F.layer_norm hot {lib:.4f} ms cold {libc:.4f} ms,"
             f" copy_ cold {cp:.4f} ms")
     t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[2/10] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
+    log(f"[2/11] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
         f"{t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms ({100 * t['bound_ms'] / t['cold_ms']:.1f}% "
         f"of the bound cold); plain {t['plain_ms']:.4f} ms; F.layer_norm hot "
         f"{t['library_ms']:.4f} ms, cold {t['library_cold_ms']:.4f} ms; copy_ of the same "
@@ -380,7 +429,7 @@ def phase_kernels(card):
         want = off == 0 and C * x.element_size() % 16 == 0
         check(vec == want, f"B1 path for C={C} {dt} offset {off}: vector={vec}")
         worst = max(worst, err)
-        log(f"[2/10] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
+        log(f"[2/11] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
             f"{'vector' if vec else 'scalar'} path: max_abs_err={err:.3g}")
         check(ok, f"B1 disagrees with its plain version at rows={rows} C={C} "
                   f"{dt} offset {off}: max abs err {err}")
@@ -627,7 +676,7 @@ def seam_scene(n=8, device="cuda"):
             dev(np.zeros((n, 3), np.float32)), dev(K), 64, 64)
 
 
-def _raster_case(label, verts, faces, R, t, K, H, W, tag="[3/10]"):
+def _raster_case(label, verts, faces, R, t, K, H, W, tag="[3/11]"):
     """The pack kernel vs the torch packing and the cull rule, and the
     kernel (both modes) vs plain (both modes), at one shape; returns the
     worst depth / xyz errors."""
@@ -754,7 +803,7 @@ def phase_raster(card, scene, bank):
     # faces per tile after culling, and the bound, at the flagship
     bd = raster_bound(*flag)
     pt = bd["per_tile"].float()
-    log(f"[3/10] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
+    log(f"[3/11] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
         f"{float(pt.mean()):.1f}, max {int(pt.max())} of {F}; {bd['pairs']:.4e} pixel-face "
         f"pairs inside the boxes vs {bd['all_pairs']:.4e} all pairs")
     # times at the flagship, depth only (the mode depth refinement runs)
@@ -777,14 +826,14 @@ def phase_raster(card, scene, bank):
                                                   max_block=PLAIN_MAX_BLOCK), iters=3,
                    warmup=1)
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"          # noqa: E731
-    log(f"[3/10] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
+    log(f"[3/11] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
         f"{t['cold_ms']:.4f} ms (2 launches; the raster kernel alone {kernel_only_ms:.4f} ms "
         f"by events, {fmt(t['kernel_ms'])} by the profiler, the pack kernel "
         f"{fmt(t['pack_kernel_ms'])}); attribute mode {k_attr_ms:.4f} ms; plain "
         f"{p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms ({bd['pairs']:.4e} tests x "
         f"{RASTER_OPS_PER_TEST} fp32 ops at 67 TFLOP/s, {bd['bound_by']}), all-pairs bound "
         f"{bd['all_pairs_bound_ms']:.4f} ms  [{card}]")
-    log(f"[3/10] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
+    log(f"[3/11] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
         f"kernels {full_ms:.4f} ms of device time per call  [{card}]")
     vsd = [_vsd_shape(card, vsd_shape_input(scene, bank, np.random.RandomState(SEED + 20 + i),
                                             n, bh, bw), n)
@@ -878,7 +927,7 @@ def _vsd_shape(card, inp, n):
     bd = raster_bound(*inp)
     pt = bd["per_tile"].float()
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
-    log(f"[3/10] B2 {label} ({faces.shape[1]} faces): == plain version bit for bit "
+    log(f"[3/11] B2 {label} ({faces.shape[1]} faces): == plain version bit for bit "
         f"({int(hit.sum())} px hit); hot {hot:.4f} ms, cold {cold:.4f} ms per call (the "
         f"raster kernel {fmt(k['raster_kernel'])}, pack {fmt(k['pack_faces_kernel'])}; the "
         f"raster kernel on empty boxes, i.e. its box tests alone, {fmt(box_ms)}); faces per "
@@ -987,11 +1036,11 @@ def phase_slice(card, tmp):
     check(launches == LN_PER_FORWARD * forwards[0],
           f"layer_norm launches {launches} != 40 x {forwards[0]} forwards")
     orth = _check_rows(results, n_rois, tmp, "rgb")
-    log(f"[4/10] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
+    log(f"[4/11] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
         f"batches of {BATCH} + warm-up: {forwards[0]} forwards, layer_norm "
         f"launches {launches} = 40 x {forwards[0]}; rows finite, "
         f"max|R^T R - I| = {orth:.2e}; CSV {len(results)} rows")
-    log(f"[4/10] RGB serving (ROI crop + forward + decode, host clock after "
+    log(f"[4/11] RGB serving (ROI crop + forward + decode, host clock after "
         f"synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -1006,7 +1055,7 @@ def phase_slice(card, tmp):
                               dev(b0["labels"]), dev(extents).float(),
                               input_res=pc.input_res, output_res=pc.output_res)
         fwd_ms = cuda_ms(lambda: model(**rb), iters=10)
-    log(f"[4/10] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[4/11] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s  [{card}]")
     serve = {"model": model, "forwards": forwards, "extents": extents, "kw": kw,
              "batches": lambda: iter_test_batches(by_im, dets, batch_size=BATCH),
@@ -1071,13 +1120,13 @@ def phase_rgbd_slice(card, scene, bank, tmp):
     check(p_launches == r_launches, f"RGB-D: pack launches {p_launches} != raster "
           f"launches {r_launches}")
     orth = _check_rows(results, n_rois, tmp, "rgbd")
-    log(f"[5/10] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
+    log(f"[5/11] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
         f"{bank.faces.shape[0]} meshes x {bank.faces.shape[1]} faces) in {nb} batches of "
         f"{BATCH} + warm-up, post_mode=depth_refine x{iters}: {forwards[0]} forwards, "
         f"layer_norm launches {ln_launches} = 80 x {forwards[0]}, raster launches "
         f"{r_launches} = {iters} x {nb + 1} (and as many pack launches); rows finite, max|R^T R - I| = {orth:.2e}; "
         f"CSV {len(results)} rows")
-    log(f"[5/10] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
+    log(f"[5/11] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
         f"after synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -1106,7 +1155,7 @@ def phase_rgbd_slice(card, scene, bank, tmp):
                     scales, bv, bf, rb["roi_extents"])
         refine_ms = cuda_ms(lambda: depth_refine_batch(*ref_args, iters=iters,
                                                        out_res=pc.output_res), iters=10)
-    log(f"[5/10] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[5/11] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s; depth refine x{iters}: {refine_ms:.3f} ms "
         f"per batch  [{card}]")
     rows2 = {k: v[:2] for k, v in rb.items()}
@@ -1134,7 +1183,7 @@ def phase_refine(card, scene, bank):
           f"depth refine left a z error of {worst_z} m from a {REFINE_OFFSET_M} m offset")
     dt = float((t_k - t_p).abs().max())
     check(dt <= REFINE_T_TOL, f"refined t, B2 vs plain rasterizer: {dt} m")
-    log(f"[6/10] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
+    log(f"[6/11] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
         f"in z, 2 iterations: z error max {worst_z * 1e3:.3f} mm, mean "
         f"{float(z_err.mean()) * 1e3:.3f} mm (limit {0.3 * REFINE_OFFSET_M * 1e3:.1f} mm); "
         f"B2 vs plain rasterizer max |dt| = {dt:.3g} m  [{card}]")
@@ -1189,7 +1238,7 @@ def phase_pnp(card, scene, bank, serve, tmp):
         check(r_err.max() < PNP_R_TOL_DEG and t_err.max() < PNP_T_TOL_M,
               f"{name} from perfect dense outputs: R error {r_err.max()} deg, t error "
               f"{t_err.max()} m")
-        log(f"[7/10] {name} recovers {n} known poses from B2-rendered XYZ / mask / 2D coords "
+        log(f"[7/11] {name} recovers {n} known poses from B2-rendered XYZ / mask / 2D coords "
             f"at {res}x{res}: R error max {r_err.max():.4f} deg, t error max "
             f"{t_err.max() * 1e3:.3f} mm (limits {PNP_R_TOL_DEG} deg, "
             f"{PNP_T_TOL_M * 1e3:.0f} mm); {ms:.3f} ms per batch of {n}  [{card}]")
@@ -1226,7 +1275,7 @@ def phase_pnp(card, scene, bank, serve, tmp):
             post_ms = cuda_ms(post[mode], iters=5, warmup=1)
         times[mode] = {"post_ms": post_ms, "p50_ms": stats["p50_ms"],
                        "rois_per_sec": stats["rois_per_sec"], "launches": launches}
-        log(f"[7/10] RGB post_mode={mode}: served {n_rois} ROIs in {nb} batches of {BATCH} + "
+        log(f"[7/11] RGB post_mode={mode}: served {n_rois} ROIs in {nb} batches of {BATCH} + "
             f"warm-up, layer_norm launches {launches} = 40 x {forwards[0]}; rows finite, "
             f"max|R^T R - I| = {orth:.2e}; {stats['rois_per_sec']:.1f} ROI/s, p50 "
             f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch; the PnP step "
@@ -1305,7 +1354,7 @@ def phase_score(card, scene, bank, tmp):
     check(all(s_gt[k] == 1.0 for k in ar_keys),
           f"GT poses as estimates: {({k: s_gt[k] for k in ar_keys})}")
     sec = ", ".join(f"{k} {v:.3f} s" for k, v in stats["seconds"].items())
-    log(f"[8/10] scoring GT poses as estimates ({len(gts)} GT, {n_vis} at visib >= 0.1, "
+    log(f"[8/11] scoring GT poses as estimates ({len(gts)} GT, {n_vis} at visib >= 0.1, "
         f"{stats['n_targets']} targets, {stats['n_pairs']} pairs) on the card, "
         f"vsd_mode=full: AR = AR_vsd = AR_mssd = AR_mspd = 1.0; VSD pairs per render "
         f"{stats['vsd_pairs']}; {launches} B2 calls; {sec}; "
@@ -1333,7 +1382,7 @@ def phase_score(card, scene, bank, tmp):
               f"ladder {name}: card vs CPU gap {gap} on image {cpu_im}")
         ladder.append({"rung": name, **{k: s_b2[k] for k in ar_keys},
                        "seconds": st["seconds"]["total"]})
-        log(f"[8/10] ladder {name}: " + " ".join(f"{k}={s_b2[k]:.4f}" for k in ar_keys)
+        log(f"[8/11] ladder {name}: " + " ".join(f"{k}={s_b2[k]:.4f}" for k in ar_keys)
             + f" (B2 == plain rasterizer on the card, every key; image {cpu_im}'s "
             f"{len(sub)} GT on the card vs the CPU: max gap {gap:.2e}); "
             f"{st['seconds']['total']:.3f} s, {st['targets_per_s']:.1f} targets/s; with the "
@@ -1372,7 +1421,7 @@ def phase_score(card, scene, bank, tmp):
             n_fit += len(m)
             n_eq += int((diff == 0).sum())
             worst = max(worst, float((diff / share).max()))
-    log(f"[8/10] bbox VSD vs full-image VSD on the card, {n_fit} pairs whose plan fits a "
+    log(f"[8/11] bbox VSD vs full-image VSD on the card, {n_fit} pairs whose plan fits a "
         f"bucket (of {len(gts)}; ladder rung {LADDER[-1][0]}): {n_eq} equal, the rest within "
         f"one pixel's share of their union (worst {worst:.2f} of it): the window's principal "
         f"point, shifted by the integer origin, rounds u by <= 1 ulp  [{card}]")
@@ -1388,7 +1437,7 @@ def phase_score(card, scene, bank, tmp):
     check(all(k in cli and np.isfinite(cli[k]) and 0.0 <= cli[k] <= 1.0 for k in ar_keys)
           and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in cli.values()),
           f"score_csv CLI scores {cli}")
-    log(f"[8/10] python -m gdrnpp_bop2022_torch.tools.score_csv on the served RGB-D CSV: "
+    log(f"[8/11] python -m gdrnpp_bop2022_torch.tools.score_csv on the served RGB-D CSV: "
         + " ".join(f"{k}={cli[k]:.4f}" for k in ar_keys)
         + f", {len(cli)} keys all finite in [0, 1]; {time.perf_counter() - t0:.1f} s "
         f"with the process start  [{card}]")
@@ -1467,13 +1516,13 @@ def ln_backward_times(card):
             t[key] += n * v
         n_bytes += n * (3 * x.numel() * 2 + 2 * rows * 4 + 3 * C * 4)
         fwd_bytes += n * (2 * x.numel() * 2 + 2 * rows * 4 + 2 * C * 4)
-        log(f"[10/10] B1 backward rows={rows} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms "
+        log(f"[10/11] B1 backward rows={rows} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms "
             f"cold {kc:.4f} ms, plain {p:.4f} ms, native_layer_norm_backward hot {lib:.4f} "
             f"ms, copy_ of the same bytes cold {cp:.4f} ms; forward with statistics cold "
             f"{fs:.4f} ms")
     t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
     t["fwd_stats_bound_ms"] = fwd_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[10/10] B1 backward per training step at batch {TRAIN_BATCH} (40 LayerNorms, "
+    log(f"[10/11] B1 backward per training step at batch {TRAIN_BATCH} (40 LayerNorms, "
         f"bf16): kernel hot {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms "
         f"({100 * t['bound_ms'] / t['cold_ms']:.1f}% of the bound cold); plain "
         f"{t['plain_ms']:.4f} ms; native_layer_norm_backward hot {t['library_ms']:.4f} ms; "
@@ -1498,7 +1547,7 @@ def phase_ln_backward(card):
         x = torch.empty(rows * C + off, dtype=dt, device="cuda")[off:].view(rows, C)
         vec = _vector_path(x, x, torch.empty(C, device="cuda"))
         worst = max(worst, err)
-        log(f"[10/10] B1 backward rows={rows} C={C} {str(dt)[6:]} offset={off} "
+        log(f"[10/11] B1 backward rows={rows} C={C} {str(dt)[6:]} offset={off} "
             f"{'vector' if vec else 'scalar'} path: dx max_abs_err={err:.3g}, dweight/dbias "
             f"max err / sum|terms| = {rel:.3g}")
         check(ok, f"B1 backward disagrees with its plain version at rows={rows} C={C} {dt} "
@@ -1511,15 +1560,16 @@ def phase_ln_backward(card):
 
 def make_train_split(root, axes_mm, rs, n_images=TRAIN_IMAGES):
     """A BOP train split <root>/train_pbr/000000: n_images 480x640 RGB PNGs
-    with DETS_PER_IMAGE ellipsoids each, their amodal (mask/) and visible
-    (mask_visib/) masks as PNGs from the analytic ray hits, and scene_gt /
-    scene_gt_info / scene_camera (YCB-V's camera)."""
+    with DETS_PER_IMAGE ellipsoids each, their analytic depth (depth/,
+    0.1 mm units), their amodal (mask/) and visible (mask_visib/) masks as
+    PNGs from the analytic ray hits, and scene_gt / scene_gt_info /
+    scene_camera (YCB-V's camera)."""
     import cv2
     from gdrnpp_bop2022_torch.bop.inout import save_json
     from gdrnpp_bop2022_torch.datasets.meta import get_meta
     K = get_meta("ycbv").camera_matrix.astype(np.float64)
     sdir = os.path.join(root, "train_pbr", "000000")
-    for sub in ("rgb", "mask", "mask_visib"):
+    for sub in ("rgb", "depth", "mask", "mask_visib"):
         os.makedirs(os.path.join(sdir, sub))
     H, W = 480, 640
     gt, info, cam = {}, {}, {}
@@ -1565,10 +1615,71 @@ def make_train_split(root, axes_mm, rs, n_images=TRAIN_IMAGES):
         img = (np.stack([shade + xx * 0.1, shade * 0.8 + yy * 0.1, shade * 0.6], -1)
                + rs.randint(0, 30, (H, W, 3))) % 256
         cv2.imwrite(os.path.join(sdir, "rgb", f"{im:06d}.png"), img.astype(np.uint8))
+        cv2.imwrite(os.path.join(sdir, "depth", f"{im:06d}.png"),
+                    np.round(depth * 10000).astype(np.uint16))
         cam[str(im)] = {"cam_K": K.ravel().tolist(), "depth_scale": 0.1}
     save_json(os.path.join(sdir, "scene_gt.json"), gt)
     save_json(os.path.join(sdir, "scene_gt_info.json"), info)
     save_json(os.path.join(sdir, "scene_camera.json"), cam)
+
+
+def write_backgrounds(bg_dir, rs, n=TRAIN_BG_IMAGES):
+    """n 640x480 background PNGs: per channel a random level and gradient,
+    plus noise."""
+    import cv2
+    os.makedirs(bg_dir)
+    yy, xx = np.mgrid[0:480, 0:640]
+    for i in range(n):
+        level, gx, gy = rs.uniform(0, 255, 3), rs.uniform(-0.3, 0.3, 3), rs.uniform(-0.3, 0.3, 3)
+        img = level + gx * xx[..., None] + gy * yy[..., None] + rs.randint(0, 40, (480, 640, 3))
+        cv2.imwrite(os.path.join(bg_dir, f"bg_{i:03d}.png"), np.clip(img, 0, 255).astype(np.uint8))
+    return sorted(os.path.join(bg_dir, f) for f in os.listdir(bg_dir))
+
+
+def _aug_check(card, cfg, records, meta, bg_paths):
+    """Background replacement and colour augmentation of one training batch
+    on the card, with draws from a generator on the card, against their
+    plain versions on the CPU given the same draws; and their time on the
+    card (CUDA events, draws included)."""
+    from gdrnpp_bop2022_torch.datasets.train_loader import GdrnTrainLoader
+    from gdrnpp_bop2022_torch.ops.color_aug import (apply_color_aug, draw_color_aug,
+                                                    draw_replace_background,
+                                                    replace_background)
+    inp = cfg.input
+    loader = GdrnTrainLoader(records, TRAIN_BATCH, meta.width, meta.height, seed=SEED + 7,
+                             bg_paths=bg_paths, truncate_fg=inp.truncate_fg)
+    try:
+        hb = next(loader)
+    finally:
+        loader.close()
+    images, fg, bgs = (torch.as_tensor(hb[k]).cuda() for k in ("images", "fg_masks",
+                                                                  "bg_images"))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    aug_type = inp.color_aug.aug_type
+
+    def augment():
+        bd = draw_replace_background(g, TRAIN_BATCH, TRAIN_BATCH, inp.change_bg_prob)
+        x, gate = replace_background(images.float(), fg, bgs, bd)
+        cd = draw_color_aug(g, tuple(x.shape), aug_type, inp.color_aug.prob)
+        return bd, x, gate, cd, apply_color_aug(x, cd, aug_type)
+
+    bd, x, gate, cd, out = augment()
+    n = AUG_CPU_SAMPLES
+    cut = lambda d: {k: v[:n].cpu() for k, v in d.items()}         # noqa: E731
+    x_cpu, gate_cpu = replace_background(images[:n].float().cpu(), fg[:n].cpu(), bgs.cpu(),
+                                         cut(bd))
+    bg_exact = bool(torch.equal(x_cpu, x[:n].cpu()) and torch.equal(gate_cpu, gate[:n].cpu()))
+    err = float((apply_color_aug(x[:n].cpu(), cut(cd), aug_type) - out[:n].cpu()).abs().max())
+    check(bg_exact and err <= AUG_TOL and 0 < float(gate.sum()) < TRAIN_BATCH,
+          f"augmentation card vs CPU: background exact {bg_exact}, colour max err {err}")
+    ms = cuda_ms(lambda: augment(), iters=5, warmup=1)
+    log(f"[10/11] background replacement (p {inp.change_bg_prob}, {len(bg_paths)} images) and "
+        f"{aug_type} colour augmentation (p {inp.color_aug.prob}) of a training batch "
+        f"({TRAIN_BATCH} x 480x640) on the card vs their plain versions on the CPU, same "
+        f"draws, first {n} images: background bit for bit ({int(gate.sum())} of "
+        f"{TRAIN_BATCH} replaced), colour max abs err {err:.2e} on [0, 255] (limit "
+        f"{AUG_TOL}); draws + both on the card {ms:.2f} ms  [{card}]")
+    return {"max_abs_err": err, "ms": ms}
 
 
 def _train_b2(card, records, bank, meta):
@@ -1590,7 +1701,7 @@ def _train_b2(card, records, bank, meta):
            dev("gt_rots"), dev("gt_transes"),
            centered_crop_K(dev("Ks"), dev("centers"), dev("scales"), 64), 64, 64)
     F = inp[1].shape[1]
-    err = _raster_case(f"training batch B={TRAIN_BATCH} 64x64 F={F}", *inp, tag="[10/10]")
+    err = _raster_case(f"training batch B={TRAIN_BATCH} 64x64 F={F}", *inp, tag="[10/11]")
     call = lambda: render_depth_xyz_cuda(*inp)                      # noqa: E731
     bd = raster_bound(*inp)
     # hot by the profiler: events around back-to-back calls of ~40 us time
@@ -1599,7 +1710,7 @@ def _train_b2(card, records, bank, meta):
          "plain_ms": cuda_ms(lambda: render_depth_xyz_batch(*inp, max_block=PLAIN_MAX_BLOCK),
                              iters=3, warmup=1),
          "bound_ms": bd["bound_ms"], "max_abs_err": err, "faces": F}
-    log(f"[10/10] B2 attribute mode at the training batch ({TRAIN_BATCH} ROIs x 64^2 x {F} "
+    log(f"[10/11] B2 attribute mode at the training batch ({TRAIN_BATCH} ROIs x 64^2 x {F} "
         f"faces, decimated): hot {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({bd['pairs']:.4e} pixel-face "
         f"pairs in the boxes, {bd['bound_by']}); faces per tile mean "
@@ -1607,10 +1718,10 @@ def _train_b2(card, records, bank, meta):
     return t
 
 
-def _train_parity(card, records, bank, meta):
-    """One fp32 step of the tiny config on the card and on the CPU from the
-    same weights and batch (built once on the CPU): losses, grads and the
-    params after the step."""
+def _train_parity(card, records, bank, meta, over=None, tag="[10/11]"):
+    """One fp32 step of the tiny config (with ``over``: the dual stream) on
+    the card and on the CPU from the same weights and batch (built once on
+    the CPU): losses, grads and the params after the step."""
     from gdrnpp_bop2022_torch.config import Config, replace_cfg
     from gdrnpp_bop2022_torch.datasets.train_loader import GdrnTrainLoader
     from gdrnpp_bop2022_torch.engine.train_state import create_train_state
@@ -1621,8 +1732,9 @@ def _train_parity(card, records, bank, meta):
     from gdrnpp_bop2022_torch.solver.lr_scheduler import build_lr_scheduler
     from gdrnpp_bop2022_torch.solver.ranger import build_optimizer
     from gdrnpp_bop2022_torch.utils.weights import seeded_state_dict
-    cfg = replace_cfg(Config(), TRAIN_TINY)
-    loader = GdrnTrainLoader(records, 4, meta.width, meta.height, seed=SEED + 1, num_workers=1)
+    cfg = replace_cfg(Config(), dict(TRAIN_TINY, **(over or {})))
+    loader = GdrnTrainLoader(records, 4, meta.width, meta.height, seed=SEED + 1, num_workers=1,
+                             with_depth=cfg.input.with_depth)
     try:
         hb = next(loader)
     finally:
@@ -1630,7 +1742,9 @@ def _train_parity(card, records, bank, meta):
     R = cfg.model.pose_net.geo_head.num_regions
     batch_cpu = prep_train_batch(hb, device_bank(bank, R, "cpu"), cfg, "cpu")
     res = {}
-    for dev in ("cuda", "cpu"):
+    # the dual stream: the card twice, for its own run-to-run spread
+    for run in (("cuda", "cuda2", "cpu") if over else ("cuda", "cpu")):
+        dev = run[:4]
         bnk = device_bank(bank, R, dev)
         batch = {k: v.to(dev) for k, v in batch_cpu.items()}
         model = build_gdrn(cfg, device=dev, train=True)
@@ -1642,48 +1756,73 @@ def _train_parity(card, records, bank, meta):
         state = create_train_state(model, build_optimizer(cfg, build_lr_scheduler(cfg, 10),
                                                           model))
         metrics = make_train_step(cfg, bnk["sym_bank"], bnk["sym_mask"])(state, batch)
-        res[dev] = ({k: float(v) for k, v in metrics.items()}, grads,
+        res[run] = ({k: float(v) for k, v in metrics.items()}, grads,
                     {n: p.detach().cpu() for n, p in model.named_parameters()})
         del model, state
     (mg, gg, pg), (mc, gc, pcpu) = res["cuda"], res["cpu"]
     loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1.0) for k in mc)
-    grad_err = max(float((gg[n] - gc[n]).abs().max()) / max(float(gc[n].abs().max()), 1e-12)
-                   for n in gc)
-    par_err = max(float((pg[n] - pcpu[n]).abs().max()) / max(float(pcpu[n].abs().max()), 1e-12)
-                  for n in pcpu)
+    rel = lambda a, b: max(float((a[n] - b[n]).abs().max())            # noqa: E731
+                           / max(float(b[n].abs().max()), 1e-12) for n in b)
+    grad_err = rel(gg, gc)
+    if over:
+        # the dual stream: Ranger's first step moves a tensor by lr x its
+        # centralized gradient plus the same weight decay on both, so the
+        # params may differ by lr x the grads' difference, centralization
+        # at most doubling it: held per tensor against lr x max|grad|
+        lr = build_lr_scheduler(cfg, 10)(0)
+        par_err = max(float((pg[n] - pcpu[n]).abs().max())
+                      / (TRAIN_PARITY_GRAD_TOL * 2.0 * lr * float(gc[n].abs().max())
+                         + 2.0 ** -22 * float(pcpu[n].abs().max()) + 1e-30) for n in pcpu)
+        par_tol = 1.0
+        par_what = ("params after the step over (grads' limit x 2 lr max|grad| + two fp32 "
+                    "ulps of max|param|), per tensor")
+    else:
+        par_err, par_tol, par_what = rel(pg, pcpu), TRAIN_PARITY_PARAM_TOL, "params after the step"
+    worst = sorted(((float((gg[n] - gc[n]).abs().max()) / max(float(gc[n].abs().max()), 1e-12),
+                     n) for n in gc), reverse=True)[:3]
+    spread = f"; the card's own run-to-run grads {rel(res['cuda2'][1], gg):.2e}" if over else ""
+    log(f"{tag} tiny step card vs CPU, the grads' worst tensors: "
+        + ", ".join(f"{n} {e:.2e}" for e, n in worst) + spread)
     check(loss_err <= TRAIN_PARITY_LOSS_TOL and grad_err <= TRAIN_PARITY_GRAD_TOL
-          and par_err <= TRAIN_PARITY_PARAM_TOL,
+          and par_err <= par_tol,
           f"training step card vs CPU: losses {loss_err}, grads {grad_err}, params {par_err}")
-    log(f"[10/10] one fp32 training step of the tiny config (convnext_tiny 64->16, 21 "
-        f"classes, batch 4, Ranger at {cfg.solver.base_lr}), card (B1 forward and backward "
+    log(f"{tag} one fp32 training step of the tiny config (convnext_tiny 64->16, 21 "
+        f"classes, batch 4, Ranger at {cfg.solver.base_lr}{', dual stream' if over else ''}), "
+        f"card (B1 forward and backward "
         f"kernels) vs CPU (plain), TF32 off, same weights and batch: losses max rel diff "
         f"{loss_err:.2e} (limit {TRAIN_PARITY_LOSS_TOL}), grads max diff / max|grad| per "
-        f"tensor {grad_err:.2e} (limit {TRAIN_PARITY_GRAD_TOL}), params after the step "
-        f"{par_err:.2e} (limit {TRAIN_PARITY_PARAM_TOL})")
+        f"tensor {grad_err:.2e} (limit {TRAIN_PARITY_GRAD_TOL}), {par_what} "
+        f"{par_err:.2e} (limit {par_tol})")
 
 
-def _train_profile(card, cfg, state, records, bank, meta):
+def _train_profile(card, cfg, state, records, bank, meta, bg_paths, tag="[10/11]"):
     """Where a training step's device time goes: torch.profiler over
-    TRAIN_PROFILE_STEPS steps (host prep of one loader batch included, the
-    loader's wait not): kernel time by name, and the device's busy share of
-    the steps' wall time."""
+    TRAIN_PROFILE_STEPS steps (host prep of one loader batch included, with
+    its augmentations, the loader's wait not): kernel time by name, and the
+    device's busy share of the steps' wall time."""
     from torch.profiler import ProfilerActivity, profile
     from gdrnpp_bop2022_torch.datasets.train_loader import GdrnTrainLoader
     from gdrnpp_bop2022_torch.engine.train_step import make_train_step
-    from gdrnpp_bop2022_torch.engine.trainer import device_bank, prep_train_batch
-    loader = GdrnTrainLoader(records, TRAIN_BATCH, meta.width, meta.height, seed=SEED + 3)
+    from gdrnpp_bop2022_torch.engine.trainer import (device_bank, make_generators,
+                                                     prep_train_batch)
+    from gdrnpp_bop2022_torch.models.layers import DropMasks
+    loader = GdrnTrainLoader(records, TRAIN_BATCH, meta.width, meta.height, seed=SEED + 3,
+                             bg_paths=bg_paths, truncate_fg=cfg.input.truncate_fg,
+                             with_depth=cfg.input.with_depth)
     try:
         hb = next(loader)
     finally:
         loader.close()
     bnk = device_bank(bank, cfg.model.pose_net.geo_head.num_regions, "cuda")
     step = make_train_step(cfg, bnk["sym_bank"], bnk["sym_mask"])
-    step(state, prep_train_batch(hb, bnk, cfg, "cuda"))
+    gens = make_generators(SEED + 3, "cuda")
+    drop = DropMasks(gen=gens["dropout"])
+    step(state, prep_train_batch(hb, bnk, cfg, "cuda", gens=gens), drop=drop)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(TRAIN_PROFILE_STEPS):
-            step(state, prep_train_batch(hb, bnk, cfg, "cuda"))
+            step(state, prep_train_batch(hb, bnk, cfg, "cuda", gens=gens), drop=drop)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILE_STEPS
     from torch.autograd import DeviceType
@@ -1697,8 +1836,9 @@ def _train_profile(card, cfg, state, records, bank, meta):
           and not getattr(e, "is_user_annotation", False)]
     busy = sum(ms for _, ms, _ in ev)
     ev.sort(key=lambda e: -e[1])
-    log(f"[10/10] profiled training step at batch {TRAIN_BATCH} ({TRAIN_PROFILE_STEPS} steps, "
-        f"host prep included): {wall_ms:.2f} ms wall, {busy:.2f} ms of device time "
+    log(f"{tag} profiled training step at batch {TRAIN_BATCH} ({TRAIN_PROFILE_STEPS} steps, "
+        f"host prep and augmentations included): {wall_ms:.2f} ms wall, {busy:.2f} ms of "
+        f"device time "
         f"({100 * busy / wall_ms:.1f}% busy), {sum(c for *_, c in ev)} kernels and copies; "
         f"top (ms per step, count): " + "; ".join(
             f"{k[:70]} {ms:.2f} ({c})" for k, ms, c in ev[:TRAIN_PROFILE_TOP]) + f"  [{card}]")
@@ -1724,55 +1864,39 @@ def _trainable_loss(cfg, model, batch, bnk):
     return float(total), float(total - const)
 
 
-def phase_train(card, scene, tmp):
-    """GDRN training on the card: the synthetic train split, the B1 backward
-    check, B2's attribute mode at a training batch, card vs CPU on one tiny
-    step, the flagship recipe for TRAIN_STEPS steps through train_gdrn, and
-    its checkpoint restored on the card bit for bit."""
-    from gdrnpp_bop2022_torch.bop.models3d import ModelBank
-    from gdrnpp_bop2022_torch.config import parse_opts, replace_cfg
-    from gdrnpp_bop2022_torch.configs import ycbv_convnext_base
-    from gdrnpp_bop2022_torch.engine.checkpoint import CheckpointManager
+class no_tf32:
+    """TF32 off for the convolutions and matmuls inside the block (fp32
+    comparisons with the CPU), the earlier settings back after it."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+def _train_recipe(card, cfg, ctx, steps, loss_drop, tag, ln_per_step):
+    """Train ``cfg`` for ``steps`` steps through train_gdrn on the card and
+    check it: launches per step (B1 ln_per_step forward + backward +
+    reductions, B2 1 pack + 1 raster), on a batch held apart the trainable
+    loss below ``loss_drop`` x its value at the initial weights, EMA !=
+    params, the last checkpoint restored bit for bit; log the step time
+    split and profile three steps. Returns the run's numbers."""
     from gdrnpp_bop2022_torch.datasets.train_loader import GdrnTrainLoader
+    from gdrnpp_bop2022_torch.engine.checkpoint import CheckpointManager
     from gdrnpp_bop2022_torch.engine.train_state import create_train_state
     from gdrnpp_bop2022_torch.engine.trainer import device_bank, prep_train_batch, train_gdrn
     from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
     from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm, layer_norm_backward
     from gdrnpp_bop2022_torch.ops.raster import pack_faces_cuda, render_depth_xyz_cuda
     from gdrnpp_bop2022_torch.solver.ranger import build_optimizer
-    from gdrnpp_bop2022_torch.tools.train_gdrn import records_for
-
-    lnb = phase_ln_backward(card)
-    root = os.path.dirname(scene["models_dir"])             # <tmp>/ycbv
-    t0 = time.perf_counter()
-    make_train_split(root, scene["axes_mm"], np.random.RandomState(SEED + 30))
-    out = os.path.join(tmp, "train_out")
-    cfg = replace_cfg(ycbv_convnext_base(), parse_opts([
-        "input.color_aug.prob=0", f"datasets.root={os.path.dirname(root)!r}",
-        "datasets.train2=()", f"solver.warmup_iters={TRAIN_WARMUP}", f"output_dir={out!r}",
-        f"train.log_period={TRAIN_LOG_PERIOD}", "train.cache_gb=0",
-        "solver.checkpoint_period_epochs=1000"]))
-    pc, meta = cfg.model.pose_net, scene["meta"]
-    check(pc.backbone.name == "convnext_base" and pc.num_classes == 21 and pc.input_res == 256
-          and cfg.solver.ims_per_batch == TRAIN_BATCH and cfg.solver.optimizer == "ranger"
-          and cfg.model.compute_dtype == "bfloat16" and pc.xyz_online and pc.xyz_bp,
-          "ycbv_convnext_base() is not the flagship training recipe")
-    bank = ModelBank.from_bop_models_dir(scene["models_dir"], num_fps=pc.geo_head.num_regions,
-                                         max_faces=pc.gt_max_faces)
-    records = records_for(cfg, meta, cfg.datasets.train)
-    check(bank.faces.shape[1] <= pc.gt_max_faces and len(records) >= TRAIN_BATCH,
-          f"bank faces {bank.faces.shape}, {len(records)} records")
-    log(f"[10/10] train split: {TRAIN_IMAGES} 480x640 images x {DETS_PER_IMAGE} ellipsoids, "
-        f"mask/ and mask_visib/ PNGs from the analytic hits, {len(records)} records at "
-        f"visib >= {cfg.datasets.filter_visib_thr}; bank decimated from 4096 to "
-        f"{bank.faces.shape[1]} faces (max_faces={pc.gt_max_faces}), {pc.geo_head.num_regions} "
-        f"FPS keypoints; {time.perf_counter() - t0:.1f} s")
-    b2 = _train_b2(card, records, bank, meta)
-
-    # the batch the loss criterion reads, and the initial weights' loss on it
-    # (train_gdrn seeds torch with cfg.train.seed before it builds the model)
+    pc, meta, records, bank = cfg.model.pose_net, ctx["meta"], ctx["records"], ctx["bank"]
+    # the batch the loss criterion reads (its own loader seed, no
+    # augmentation), and the initial weights' loss on it (train_gdrn seeds
+    # torch with cfg.train.seed before it builds the model)
     loader = GdrnTrainLoader(records, TRAIN_BATCH, meta.width, meta.height, seed=SEED + 5,
-                             num_workers=1)
+                             num_workers=1, with_depth=cfg.input.with_depth)
     try:
         held_host = next(loader)
     finally:
@@ -1784,64 +1908,71 @@ def phase_train(card, scene, tmp):
     held_total0, held_train0 = _trainable_loss(cfg, model0, held, bnk)
     del model0
 
-    # the flagship recipe through train_gdrn; counts from this run only
+    # the recipe through train_gdrn; counts from this run only
     stats = {}
     layer_norm.launches = layer_norm_backward.launches = 0
     layer_norm_backward.reduce_launches = layer_norm_backward.dy_copies = 0
     render_depth_xyz_cuda.launches = pack_faces_cuda.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state = train_gdrn(cfg, records, bank, max_iters=TRAIN_STEPS, resume=False, meta=meta,
+    state = train_gdrn(cfg, records, bank, max_iters=steps, resume=False, meta=meta,
                        stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n = TRAIN_STEPS
+    n = steps
     launches = {"fwd": layer_norm.launches, "bwd": layer_norm_backward.launches,
                 "reduce": layer_norm_backward.reduce_launches,
                 "raster": render_depth_xyz_cuda.launches, "pack": pack_faces_cuda.launches}
     check(state.step == n and next(state.model.parameters()).is_cuda, "training did not run")
-    check(launches["fwd"] == LN_PER_FORWARD * n and launches["bwd"] == LN_PER_FORWARD * n
-          and launches["reduce"] == LN_PER_FORWARD * n,
-          f"B1 launches over {n} steps: {launches}")
+    check(launches["fwd"] == ln_per_step * n and launches["bwd"] == ln_per_step * n
+          and launches["reduce"] == ln_per_step * n, f"B1 launches over {n} steps: {launches}")
     check(launches["raster"] == n and launches["pack"] == n, f"B2 launches: {launches}")
+    out = cfg.output_dir
     rows = [json.loads(line) for line in open(os.path.join(out, "metrics.json"))]
     losses = [r["total_loss"] for r in rows]
     pose = [sum(r[k] for k in POSE_LOSSES) for r in rows]
     held_total, held_train = _trainable_loss(cfg, state.model, held, bnk)
     del held, held_host
     check(all(np.isfinite(losses)) and np.isfinite(held_train)
-          and held_train < TRAIN_LOSS_DROP * held_train0,
+          and held_train < loss_drop * held_train0,
           f"the trainable loss on the held batch did not fall: {held_train0} at the initial "
-          f"weights, {held_train} after {TRAIN_STEPS} steps")
+          f"weights, {held_train} after {n} steps")
     check(any(not torch.equal(e, p) for e, p in zip(state.ema, state.model.parameters())),
           "the EMA weights equal the parameters")
-    steps = stats["step"][TRAIN_SKIP:]
+    steps_ms = stats["step"][TRAIN_SKIP:]
     pct = lambda a, q: float(np.percentile(a, q))            # noqa: E731
     mean = lambda k: float(np.mean(stats[k][TRAIN_SKIP:]))   # noqa: E731
-    rois_s = TRAIN_BATCH * len(steps) / (sum(steps) / 1e3)
-    log(f"[10/10] trained ycbv_convnext_base() (convnext_base 256->64, 21 classes, bf16, "
-        f"batch {TRAIN_BATCH}, Ranger 8e-4, flat-and-anneal with a {TRAIN_WARMUP}-step "
-        f"warmup, input.color_aug.prob=0, train.cache_gb=0) for {n} steps through "
-        f"train_gdrn in {wall:.1f} s: on a batch of {TRAIN_BATCH} held apart, total_loss "
-        f"less the region CE's constant (every trainable term) {held_train0:.4f} at the "
-        f"initial weights -> {held_train:.4f} after {n} steps ({held_train / held_train0:.3f}x, "
-        f"must fall below {TRAIN_LOSS_DROP}x; total_loss {held_total0:.4f} -> "
-        f"{held_total:.4f}); logged every {TRAIN_LOG_PERIOD} steps: pose losses "
-        f"({' + '.join(POSE_LOSSES)}) " + " ".join(f"{v:.3f}" for v in pose) + "; total_loss "
-        + " ".join(f"{v:.3f}" for v in losses))
-    log("[10/10] loss terms at the first and the last logged step: " + ", ".join(
+    rois_s = TRAIN_BATCH * len(steps_ms) / (sum(steps_ms) / 1e3)
+    inp = cfg.input
+    log(f"{tag} trained {cfg.exp_name} (convnext_base 256->64, 21 classes, bf16, batch "
+        f"{TRAIN_BATCH}, Ranger 8e-4, flat-and-anneal with a {TRAIN_WARMUP}-step warmup, "
+        f"colour aug {inp.color_aug.aug_type} at p {inp.color_aug.prob}, backgrounds at p "
+        f"{inp.change_bg_prob}, depth aug {inp.with_depth and inp.depth_aug}, "
+        f"train.cache_gb=0) for {n} steps through train_gdrn in {wall:.1f} s: on a batch of "
+        f"{TRAIN_BATCH} held apart, total_loss less the region CE's constant (every trainable "
+        f"term) {held_train0:.4f} at the initial weights -> {held_train:.4f} after {n} steps "
+        f"({held_train / held_train0:.3f}x, must fall below {loss_drop}x; total_loss "
+        f"{held_total0:.4f} -> {held_total:.4f}); logged every {TRAIN_LOG_PERIOD} steps: pose "
+        f"losses ({' + '.join(POSE_LOSSES)}) " + " ".join(f"{v:.3f}" for v in pose)
+        + "; total_loss " + " ".join(f"{v:.3f}" for v in losses))
+    log(f"{tag} loss terms at the first and the last logged step: " + ", ".join(
         f"{k} {rows[0][k]:.4f} -> {rows[-1][k]:.4f}" for k in rows[0]
         if k.startswith("loss_") or k.startswith("error_")))
-    log(f"[10/10] training step at batch {TRAIN_BATCH} (CUDA events, steps {TRAIN_SKIP + 1}.."
-        f"{n - 1}): p50 {pct(steps, 50):.2f} ms, p99 {pct(steps, 99):.2f} ms = "
-        f"{rois_s:.1f} ROIs/s; per step mean: online batch (H2D + crops + B2 + targets) "
-        f"{mean('batch'):.2f} ms, forward + backward {mean('fwd_bwd'):.2f} ms, optimizer + "
-        f"EMA {mean('opt_ema'):.2f} ms; host wait on the loader mean "
+    split = {k: mean(k) for k in ("h2d", "aug", "batch", "depth", "fwd_bwd", "opt_ema")
+             if k in stats}
+    log(f"{tag} training step at batch {TRAIN_BATCH} (CUDA events, steps {TRAIN_SKIP + 1}.."
+        f"{n - 1}): p50 {pct(steps_ms, 50):.2f} ms, p99 {pct(steps_ms, 99):.2f} ms = "
+        f"{rois_s:.1f} ROIs/s; per step mean: H2D + pool gathers {split['h2d']:.2f} ms, "
+        f"augmentations (background + colour) {split['aug']:.2f} ms, online batch (crops + B2 "
+        f"+ targets) {split['batch']:.2f} ms, "
+        + (f"depth aug + depth ROIs {split['depth']:.2f} ms, " if "depth" in split else "")
+        + f"forward + backward {split['fwd_bwd']:.2f} ms, optimizer + EMA "
+        f"{split['opt_ema']:.2f} ms; host wait on the loader mean "
         f"{float(np.mean(stats['host_wait'][TRAIN_SKIP:])):.2f} ms, p99 "
         f"{pct(stats['host_wait'][TRAIN_SKIP:], 99):.2f} ms; peak max_memory_allocated "
         f"{peak_gb:.2f} GB  [{card}]")
-    log(f"[10/10] launches per step: B1 forward {launches['fwd'] // n}, B1 backward "
+    log(f"{tag} launches per step: B1 forward {launches['fwd'] // n}, B1 backward "
         f"{launches['bwd'] // n} (+ {launches['reduce'] // n} reduction launches), B2 "
         f"{launches['pack'] // n} pack + {launches['raster'] // n} raster; dy copied before "
         f"the backward kernel {layer_norm_backward.dy_copies} times in {n} steps")
@@ -1851,6 +1982,7 @@ def phase_train(card, scene, tmp):
     check(mgr.latest_step() == n, f"checkpoint steps: {mgr.latest_step()}")
     model = build_gdrn(cfg, train=True)
     fresh = create_train_state(model, build_optimizer(cfg, 1e-3, model))
+    fresh.generators = {k: torch.Generator(device="cuda") for k in state.generators}
     mgr.restore_latest(fresh)
     same = (fresh.step == n
             and all(torch.equal(p, q) for p, q in zip(state.model.parameters(),
@@ -1858,20 +1990,162 @@ def phase_train(card, scene, tmp):
             and all(torch.equal(a, b) for a, b in zip(state.ema, fresh.ema))
             and all(torch.equal(v, fresh.optimizer.state[q][k])
                     for p, q in zip(state.model.parameters(), fresh.model.parameters())
-                    for k, v in state.optimizer.state[p].items()))
-    check(same, "the checkpoint did not restore params, EMA and optimizer state bit for bit")
+                    for k, v in state.optimizer.state[p].items())
+            and all(torch.equal(g.get_state(), fresh.generators[k].get_state())
+                    for k, g in state.generators.items()))
+    check(same, "the checkpoint did not restore params, EMA, optimizer state and generators "
+          "bit for bit")
     size_gb = os.path.getsize(mgr.path(n)) / 1e9
-    log(f"[10/10] checkpoint of step {n} ({size_gb:.2f} GB: model, EMA, Ranger state) "
-        f"restored on the card: params, EMA and optimizer state bit for bit")
+    log(f"{tag} checkpoint of step {n} ({size_gb:.2f} GB: model, EMA, Ranger state, the "
+        f"trainer's generators) restored on the card: params, EMA, optimizer state and "
+        f"generators bit for bit")
     del fresh, model
-    prof = _train_profile(card, cfg, state, records, bank, meta)
+    prof = _train_profile(card, cfg, state, records, bank, meta, ctx["bg_paths"], tag=tag)
     del state
     torch.cuda.empty_cache()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    _train_parity(card, records, bank, meta)
-    return {"lnb": lnb, "b2": b2, "launches": launches, "profile": prof,
-            "step_p50_ms": pct(steps, 50), "rois_s": rois_s, "peak_gb": peak_gb}
+    return {"launches": launches, "profile": prof, "step_p50_ms": pct(steps_ms, 50),
+            "step_p99_ms": pct(steps_ms, 99), "rois_s": rois_s, "peak_gb": peak_gb,
+            "split_ms": split, "loss_ratio": held_train / held_train0}
+
+
+def phase_train(card, scene, tmp):
+    """GDRN training on the card: the synthetic train split and the
+    backgrounds, the B1 backward check, B2's attribute mode at a training
+    batch, the augmentations card vs CPU, the flagship recipe as configured
+    for TRAIN_STEPS steps through train_gdrn and its checkpoint, card vs CPU
+    on one tiny step. Returns what phase 11 and the pool run reuse."""
+    from gdrnpp_bop2022_torch.bop.models3d import ModelBank
+    from gdrnpp_bop2022_torch.config import parse_opts, replace_cfg
+    from gdrnpp_bop2022_torch.configs import ycbv_convnext_base
+    from gdrnpp_bop2022_torch.tools.train_gdrn import records_for
+
+    lnb = phase_ln_backward(card)
+    root = os.path.dirname(scene["models_dir"])             # <tmp>/ycbv
+    t0 = time.perf_counter()
+    make_train_split(root, scene["axes_mm"], np.random.RandomState(SEED + 30))
+    bg_dir = os.path.join(tmp, "backgrounds")
+    bg_paths = write_backgrounds(bg_dir, np.random.RandomState(SEED + 31))
+    common = [f"datasets.root={os.path.dirname(root)!r}", "datasets.train2=()",
+              f"solver.warmup_iters={TRAIN_WARMUP}", f"train.log_period={TRAIN_LOG_PERIOD}",
+              "train.cache_gb=0", "solver.checkpoint_period_epochs=1000",
+              f"input.bg_images_dir={bg_dir!r}"]
+    cfg = replace_cfg(ycbv_convnext_base(), parse_opts(
+        common + [f"output_dir={os.path.join(tmp, 'train_out')!r}"]))
+    pc, meta = cfg.model.pose_net, scene["meta"]
+    check(pc.backbone.name == "convnext_base" and pc.num_classes == 21 and pc.input_res == 256
+          and cfg.solver.ims_per_batch == TRAIN_BATCH and cfg.solver.optimizer == "ranger"
+          and cfg.model.compute_dtype == "bfloat16" and pc.xyz_online and pc.xyz_bp
+          and cfg.input.color_aug.prob == 0.8 and cfg.input.color_aug.aug_type == "cosy+aae"
+          and cfg.input.change_bg_prob == 0.5,
+          "ycbv_convnext_base() is not the flagship training recipe")
+    bank = ModelBank.from_bop_models_dir(scene["models_dir"], num_fps=pc.geo_head.num_regions,
+                                         max_faces=pc.gt_max_faces)
+    records = records_for(cfg, meta, cfg.datasets.train)
+    check(bank.faces.shape[1] <= pc.gt_max_faces and len(records) >= TRAIN_BATCH,
+          f"bank faces {bank.faces.shape}, {len(records)} records")
+    log(f"[10/11] train split: {TRAIN_IMAGES} 480x640 images x {DETS_PER_IMAGE} ellipsoids, "
+        f"analytic depth, mask/ and mask_visib/ PNGs from the analytic hits, {len(records)} "
+        f"records at visib >= {cfg.datasets.filter_visib_thr}; {len(bg_paths)} 640x480 "
+        f"backgrounds; bank decimated from 4096 to {bank.faces.shape[1]} faces "
+        f"(max_faces={pc.gt_max_faces}), {pc.geo_head.num_regions} FPS keypoints; "
+        f"{time.perf_counter() - t0:.1f} s")
+    b2 = _train_b2(card, records, bank, meta)
+    aug = _aug_check(card, cfg, records, meta, bg_paths)
+    ctx = {"meta": meta, "records": records, "bank": bank, "bg_paths": bg_paths,
+           "common": common, "tmp": tmp}
+    run = _train_recipe(card, cfg, ctx, TRAIN_STEPS, TRAIN_LOSS_DROP, "[10/11]",
+                        LN_PER_FORWARD)
+    with no_tf32():
+        _train_parity(card, records, bank, meta)
+    return dict(run, lnb=lnb, b2=b2, aug=aug, ctx=ctx)
+
+
+def phase_train_rgbd(card, ctx):
+    """Phase 11: the BOP'22 RGB-D recipe (two convnext_base, concat fusion,
+    depth augmentation) at full width through train_gdrn: launches per step
+    (B1 80 + 80 + 80, B2 1 + 1), B1's backward at this path's shapes vs its
+    plain version, the trainable loss, EMA != params, the checkpoint, the
+    busy share, and one tiny dual-stream step card vs CPU."""
+    from gdrnpp_bop2022_torch.config import parse_opts, replace_cfg
+    from gdrnpp_bop2022_torch.configs import ycbv_convnext_base_rgbd
+    cfg = replace_cfg(ycbv_convnext_base_rgbd(), parse_opts(
+        ctx["common"] + [f"output_dir={os.path.join(ctx['tmp'], 'train_rgbd_out')!r}"]))
+    pc, inp = cfg.model.pose_net, cfg.input
+    check(pc.name == "gdrn_dstream_double_mask" and pc.fuse_type == "cat"
+          and pc.backbone.name == "convnext_base" and inp.with_depth and inp.depth_aug
+          and inp.bp_depth and cfg.solver.ims_per_batch == TRAIN_BATCH
+          and cfg.model.compute_dtype == "bfloat16",
+          "ycbv_convnext_base_rgbd() is not the BOP'22 RGB-D recipe")
+    # B1's backward at both backbones' shapes (the same four) in bf16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    worst = 0.0
+    for r, C, _ in LN_SHAPES:
+        err, rel, ok = _ln_bwd_case(TRAIN_BATCH * r, C, torch.bfloat16, g)
+        check(ok, f"B1 backward at ({TRAIN_BATCH * r}, {C}) bf16: dx err {err}, rel {rel}")
+        worst = max(worst, err)
+    log(f"[11/11] B1 backward vs plain at the dual stream's shapes (both backbones: "
+        f"{', '.join(f'({TRAIN_BATCH * r}, {C})' for r, C, _ in LN_SHAPES)}, bf16): dx max "
+        f"abs err {worst:.3e}, within one bf16 ulp + 1e-5; dweight / dbias within "
+        f"{LN_BWD_REL_TOL} of the sum of their terms")
+    run = _train_recipe(card, cfg, ctx, TRAIN_RGBD_STEPS, TRAIN_RGBD_LOSS_DROP, "[11/11]",
+                        2 * LN_PER_FORWARD)
+    with no_tf32():
+        _train_parity(card, ctx["records"], ctx["bank"], ctx["meta"], over=DSTREAM, tag="[11/11]")
+    return dict(run, ln_bwd_err=worst)
+
+
+def phase_pool(card, ctx):
+    """Pool mode on the flagship recipe: POOL_BATCHES training batches of
+    frames kept on the card (uploads on a side stream) equal to the host
+    batches of the same seed and draws, bit for bit; then POOL_STEPS steps
+    through train_gdrn and the pools' stats."""
+    from gdrnpp_bop2022_torch.config import parse_opts, replace_cfg
+    from gdrnpp_bop2022_torch.configs import ycbv_convnext_base
+    from gdrnpp_bop2022_torch.datasets.device_pool import FramePools
+    from gdrnpp_bop2022_torch.datasets.train_loader import GdrnTrainLoader
+    from gdrnpp_bop2022_torch.engine.trainer import (device_bank, make_generators,
+                                                     prep_train_batch, train_gdrn)
+    cfg = replace_cfg(ycbv_convnext_base(), parse_opts(
+        ctx["common"] + [f"output_dir={os.path.join(ctx['tmp'], 'train_pool_out')!r}",
+                         f"train.device_pool_frames={POOL_FRAMES}"]))
+    meta, records, bank = ctx["meta"], ctx["records"], ctx["bank"]
+    bnk = device_bank(bank, cfg.model.pose_net.geo_head.num_regions, "cuda")
+    pools = FramePools(meta.height, meta.width, rgb_frames=POOL_FRAMES,
+                       mask_frames=2 * POOL_FRAMES, bg_frames=cfg.train.device_pool_bg_frames,
+                       device="cuda")
+    kw = dict(seed=SEED + 17, bg_paths=ctx["bg_paths"], truncate_fg=cfg.input.truncate_fg)
+    host = GdrnTrainLoader(records, TRAIN_BATCH, meta.width, meta.height, **kw)
+    pooled = GdrnTrainLoader(records, TRAIN_BATCH, meta.width, meta.height, pools=pools, **kw)
+    gh, gp = make_generators(SEED, "cuda"), make_generators(SEED, "cuda")
+    try:
+        for i in range(POOL_BATCHES):
+            a = prep_train_batch(next(host), bnk, cfg, "cuda", gens=gh)
+            b = prep_train_batch(next(pooled), bnk, cfg, "cuda", gens=gp)
+            bad = [k for k in a if not torch.equal(a[k], b[k])]
+            check(set(a) == set(b) and not bad, f"pool batch {i} differs from the host "
+                  f"batch in {bad}")
+    finally:
+        host.close()
+        pooled.close()
+    log(f"[10/11] pool mode: {POOL_BATCHES} training batches from frames kept on the card "
+        f"({pools.nbytes / 1e9:.2f} GB: {POOL_FRAMES} RGB, {2 * POOL_FRAMES} mask, "
+        f"{cfg.train.device_pool_bg_frames} background slots; uploads on a side stream) equal "
+        f"the host batches of the same seed and draws bit for bit (augmented crops, masks, "
+        f"XYZ, regions); pools {pools.stats()}")
+    stats = {}
+    state = train_gdrn(cfg, records, bank, max_iters=POOL_STEPS, resume=False, meta=meta,
+                       stats=stats)
+    torch.cuda.synchronize()
+    check(state.step == POOL_STEPS, "pool-mode training did not run")
+    steps_ms = stats["step"][1:]
+    log(f"[10/11] pool-mode training (train.device_pool_frames={POOL_FRAMES}) for "
+        f"{POOL_STEPS} steps: step mean {float(np.mean(steps_ms)):.2f} ms (steps 2.."
+        f"{POOL_STEPS - 1}), H2D + pool gathers {float(np.mean(stats['h2d'][1:])):.2f} ms, host "
+        f"wait {float(np.mean(stats['host_wait'][1:])):.2f} ms; pools {stats['pool']}  "
+        f"[{card}]")
+    del state
+    torch.cuda.empty_cache()
+    return {"stats": stats["pool"], "step_ms": float(np.mean(steps_ms))}
 
 
 def _parity(cfg, batch, tag):
@@ -1895,7 +2169,7 @@ def _parity(cfg, batch, tag):
         tol = PARITY_ROT_TOL if k == "rot" else PARITY_REL_TOL * scale
         check(torch.isfinite(gpu[k]).all() and d <= tol,
               f"{tag} card vs CPU {k}: max abs diff {d} > {tol}")
-    log(f"[9/10] fp32 {tag}, 2 ROIs, card (B1 kernel) vs CPU (plain), TF32 "
+    log(f"[9/11] fp32 {tag}, 2 ROIs, card (B1 kernel) vs CPU (plain), TF32 "
         "off: max abs diff " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
 
 
@@ -2011,7 +2285,7 @@ def main():
         scene = make_rgbd_scene(os.path.join(tmp, "ycbv"), np.random.RandomState(SEED + 2))
         bank = ModelBank.from_bop_models_dir(scene["models_dir"])
         check(bank.faces.shape == (21, 4096, 3), f"bank faces {bank.faces.shape}")
-        log(f"[3/10] RGB-D scene and model bank written and loaded in "
+        log(f"[3/11] RGB-D scene and model bank written and loaded in "
             f"{time.perf_counter() - t0:.1f} s (analytic depth, no rendering)")
         b2 = phase_raster(card, scene, bank)
         rb, serve = phase_slice(card, os.path.join(tmp, "rgb"))
@@ -2021,9 +2295,12 @@ def main():
         del serve
         score = phase_score(card, scene, bank, tmp)
         train = phase_train(card, scene, tmp)
+        pool = phase_pool(card, train["ctx"])
+        rgbd = phase_train_rgbd(card, train["ctx"])
+        del train["ctx"]
         lnb = train["lnb"]
     share = 100.0 * 2 * b2["ms"] / times["p50_ms"]
-    log(f"[5/10] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
+    log(f"[5/11] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
         f"{times['p50_ms']:.2f} ms p50 batch = {share:.2f}%  [{card}]")
     phase_parity(rb, rb_rgbd)
     bad = sorted(m for m in sys.modules
@@ -2039,7 +2316,8 @@ def main():
          "bound_by": ln["bound_by"], "library_ms": ln["library_ms"],
          "launches_by_path": {"rgbd_depth_refine": ln_launches,
                               **{f"rgb_{m}": pnp[m]["launches"] for m in PNP_MODES},
-                              "train": train["launches"]["fwd"]}},
+                              "train": train["launches"]["fwd"],
+                              "train_rgbd": rgbd["launches"]["fwd"]}},
         {"name": "layer_norm_backward", "route": "cuda",
          "source": "gdrnpp_bop2022_torch/csrc/layer_norm.cu",
          "replaces": "gdrnpp_bop2022_tpu/ops/pallas_ln.py:26 (its VJP)",
@@ -2050,7 +2328,8 @@ def main():
          "library_ms": lnb["library_ms"], "copy_cold_ms": lnb["copy_cold_ms"],
          "fwd_stats_cold_ms": lnb["fwd_stats_cold_ms"],
          "fwd_stats_bound_ms": lnb["fwd_stats_bound_ms"],
-         "launches_by_path": {"train": train["launches"]["bwd"]}},
+         "launches_by_path": {"train": train["launches"]["bwd"],
+                              "train_rgbd": rgbd["launches"]["bwd"]}},
         {"name": "render_depth_xyz", "route": "cuda",
          "source": "gdrnpp_bop2022_torch/csrc/raster.cu",
          "replaces": "gdrnpp_bop2022_tpu/ops/pallas_raster.py:53",
@@ -2059,7 +2338,8 @@ def main():
          "bound_by": b2["bound_by"], "all_pairs_bound_ms": b2["all_pairs_bound_ms"],
          "library_ms": None,
          "launches_by_path": {"rgbd_depth_refine": r_launches, "scoring": score["launches"],
-                              "train": train["launches"]["raster"]},
+                              "train": train["launches"]["raster"],
+                              "train_rgbd": rgbd["launches"]["raster"]},
          "vsd_shapes": b2["vsd_shapes"], "train_attribute_mode": train["b2"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

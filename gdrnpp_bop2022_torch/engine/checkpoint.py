@@ -4,8 +4,10 @@ Port of ``gdrnpp_bop2022_tpu/engine/checkpoint.py`` (reference fvcore
 MyCheckpointer + PeriodicCheckpointer, engine.py:219-249), with its method
 names: ``save``, ``latest_step``, ``restore_latest`` and ``max_to_keep``.
 A checkpoint ``ckpt_<step>.pth`` holds the model's state dict, the EMA
-weights, the optimizer's state, the step and the torch generators' states;
-only the newest ``max_to_keep`` stay on disk.
+weights, the optimizer's state, the step, the torch generators' states and
+the trainer's own generators (``TrainState.generators``); only the newest
+``max_to_keep`` stay on disk. Frame pools are not saved: a resumed run
+refills them.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ class CheckpointManager:
             "optimizer": state.optimizer.state_dict(),
             "torch_rng": torch.get_rng_state(),
             "cuda_rng": torch.cuda.get_rng_state_all() if torch.cuda.is_available() else None,
+            "generators": {k: g.get_state() for k, g in state.generators.items()},
         }
         path = self.path(step)
         tmp = path + ".tmp"
@@ -70,4 +73,7 @@ class CheckpointManager:
         torch.set_rng_state(payload["torch_rng"])
         if payload.get("cuda_rng") is not None and torch.cuda.is_available():
             torch.cuda.set_rng_state_all(payload["cuda_rng"])
+        for k, g_state in payload.get("generators", {}).items():
+            if k in state.generators:
+                state.generators[k].set_state(g_state)
         return state

@@ -30,8 +30,10 @@ def model_inputs(batch: dict) -> dict:
     return kw
 
 
-def forward_outputs(model, batch: dict) -> dict:
-    return model(**model_inputs(batch))
+def forward_outputs(model, batch: dict, drop=None, progress: float = 1.0) -> dict:
+    """The model on the batch; ``drop`` (a ``models.layers.DropMasks``) and
+    ``progress`` feed drop_path and DropBlock in training."""
+    return model(**model_inputs(batch), drop=drop, progress=progress)
 
 
 def loss_and_metrics(cfg, outputs: dict, batch: dict, sym_bank=None, sym_mask=None):
@@ -42,7 +44,7 @@ def loss_and_metrics(cfg, outputs: dict, batch: dict, sym_bank=None, sym_mask=No
                     "rot_ego": outputs["rot"], "trans": outputs["trans"],
                     "centroid_rel": outputs["centroid_rel"], "z_rel": outputs["z_rel"]}
     losses = compute_gdrn_losses(cfg, out_for_loss, batch, sym_bank=sym_bank,
-                                 sym_mask=sym_mask)
+                                 sym_mask=sym_mask, log_vars=outputs.get("log_vars"))
     total = sum(losses.values())
     metrics = dict(losses)
     metrics["total_loss"] = total
@@ -55,23 +57,26 @@ def loss_and_metrics(cfg, outputs: dict, batch: dict, sym_bank=None, sym_mask=No
 
 
 def make_train_step(cfg, sym_bank=None, sym_mask=None):
-    """train_step(state, batch, timer=None) -> metrics; advances state in
-    place (params, optimizer state, EMA, step). ``timer.mark(name)``, when
-    given, is called after the backward ("fwd_bwd") and after the optimizer
-    and EMA ("opt_ema")."""
+    """train_step(state, batch, timer=None, drop=None, progress=1.0) ->
+    metrics; advances state in place (params, optimizer state, EMA, step).
+    ``drop`` and ``progress`` feed drop_path and DropBlock (``progress``:
+    the share of the run done). The EMA advances with each optimizer update
+    (every step, or every k-th with ``solver.grad_accum_steps`` k).
+    ``timer.mark(name)``, when given, is called after the backward
+    ("fwd_bwd") and after the optimizer and EMA ("opt_ema")."""
 
-    def train_step(state, batch: dict, timer=None) -> dict:
+    def train_step(state, batch: dict, timer=None, drop=None, progress: float = 1.0) -> dict:
         model = state.model
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        outputs = forward_outputs(model, batch)
+        outputs = forward_outputs(model, batch, drop, progress)
         total, metrics = loss_and_metrics(cfg, outputs, batch, sym_bank, sym_mask)
         total.backward()
         if timer is not None:
             timer.mark("fwd_bwd")
-        state.optimizer.step()
+        if state.optimizer.step():
+            state.update_ema()
         state.step += 1
-        state.update_ema()
         if timer is not None:
             timer.mark("opt_ema")
         return metrics

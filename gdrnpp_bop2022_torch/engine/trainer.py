@@ -4,21 +4,26 @@ Port of ``gdrnpp_bop2022_tpu/engine/trainer.py`` (reference
 GDRN_Lite.do_train, core/gdrn_modeling/engine/engine.py:166-420) for
 stacked host batches:
 
-  BOP records -> ``GdrnTrainLoader`` (host threads: decode, DZI jitter) ->
-  ``prep_train_batch`` on the card (``build_train_batch_online``: crops,
-  kernel B2's depth + XYZ render, masks, regions, SITE targets; the PM
-  points) -> ``make_train_step`` (bf16 forward, B1 forward and backward
-  kernels, the GDRN losses, the optimizer, the EMA) -> ``metrics.json`` +
-  TensorBoard scalars and checkpoints.
+  BOP records -> ``GdrnTrainLoader`` (host threads: decode, DZI jitter,
+  backgrounds, truncation draws; or slots into ``FramePools`` on the
+  device) -> ``prep_train_batch`` on the card, in the JAX package's order:
+  background replacement, colour augmentation, ``build_train_batch_online``
+  (crops, kernel B2's depth + XYZ render, masks, regions, SITE targets),
+  the truncation folded into gt_mask_trunc where the background was
+  replaced, and for RGB-D the depth augmentation and depth ROIs ->
+  ``make_train_step`` (bf16 forward, B1 forward and backward kernels,
+  drop_path / DropBlock, the GDRN losses, the optimizer, the EMA) ->
+  ``metrics.json`` + TensorBoard scalars and checkpoints.
 
-Only the log period reads metrics back to the host. What waits for slice 3b
-raises ``NotImplementedError`` here: colour augmentation, background
-replacement and truncation, RGB-D training, device frame pools, drop_path /
-DropBlock rates above 0, ``use_mtl`` and offline XYZ (``xyz_online=False``).
+Every random draw of a step comes from the trainer's generators, one per
+purpose (bg, color, depth, dropout), seeded from ``cfg.train.seed`` and
+kept in checkpoints. Only the log period reads metrics back to the host.
+Offline XYZ (``xyz_online=False``) raises, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import time
@@ -31,9 +36,14 @@ from ..config import Config
 from ..datasets.meta import get_meta
 from ..datasets.train_loader import GdrnTrainLoader
 from ..models.gdrn import build_gdrn
+from ..models.layers import DropMasks
+from ..ops.color_aug import apply_color_aug, draw_color_aug, draw_replace_background, \
+    replace_background
+from ..ops.crop import roi_crop_resize
+from ..ops.depth_aug import draw_gdrn_depth_aug, gdrn_depth_aug
 from ..solver.lr_scheduler import build_lr_scheduler, flat_and_anneal_schedule
 from ..solver.ranger import build_optimizer
-from .batching import build_train_batch_online
+from .batching import build_depth_rois, build_train_batch_online, trunc_mask_batch
 from .checkpoint import CheckpointManager
 from .train_state import create_train_state
 from .train_step import make_train_step
@@ -122,29 +132,42 @@ class StepTimer:
         return out
 
 
-def check_slice(cfg: Config) -> None:
-    """Raise on what the port's trainer does not do yet (slice 3b)."""
-    pc, inp = cfg.model.pose_net, cfg.input
-    later = []
-    if not pc.xyz_online:
-        later.append("pose_net.xyz_online=False (offline XYZ)")
-    if inp.color_aug.prob > 0:
-        later.append(f"input.color_aug.prob={inp.color_aug.prob} (colour augmentation)")
-    if inp.change_bg_prob > 0 and inp.bg_images_dir:
-        later.append("input.change_bg_prob > 0 with bg_images_dir (background replacement)")
-    if inp.truncate_fg:
-        later.append("input.truncate_fg (foreground truncation)")
-    if inp.with_depth:
-        later.append("input.with_depth (RGB-D training, depth augmentation)")
-    if cfg.train.device_pool_frames > 0:
-        later.append("train.device_pool_frames > 0 (device frame pools)")
-    if pc.pnp_net.drop_prob > 0:
-        later.append(f"pnp_net.drop_prob={pc.pnp_net.drop_prob} (DropBlock in training)")
-    if pc.loss.use_mtl:
-        later.append("loss.use_mtl (learned task weights)")
-    if later:
-        raise NotImplementedError("the port's trainer does not do " + "; ".join(later)
-                                  + " yet: it arrives with slice 3b")
+def check_config(cfg: Config) -> None:
+    """Raise on what the trainer does not do: offline XYZ ground truth
+    (``xyz_online=False``), which the JAX package's trainer refuses too:
+    the ground truth is rendered on the device every step."""
+    if not cfg.model.pose_net.xyz_online:
+        raise NotImplementedError(
+            "pose_net.xyz_online=False (offline pre-generated XYZ files) is not supported: "
+            "the XYZ and depth ground truth is rendered on the device every step "
+            "(build_train_batch_online); set xyz_online=True")
+
+
+GENERATORS = ("bg", "color", "depth", "dropout")
+
+
+def make_generators(seed: int, device) -> dict:
+    """One torch.Generator per purpose on ``device``, each seeded from
+    ``seed`` (purpose i: 8 seed + i + 1)."""
+    return {name: torch.Generator(device=device).manual_seed(8 * seed + i + 1)
+            for i, name in enumerate(GENERATORS)}
+
+
+def bg_image_paths(cfg: Config):
+    """The background images of ``input.bg_images_dir`` (jpg / jpeg / png,
+    recursively), or None without background replacement. A configured
+    directory without images raises: training without them would be
+    another recipe."""
+    inp = cfg.input
+    if not (inp.change_bg_prob > 0 and inp.bg_images_dir):
+        return None
+    paths = sorted(p for ext in ("*.jpg", "*.jpeg", "*.png")
+                   for p in glob.glob(os.path.join(inp.bg_images_dir, "**", ext),
+                                      recursive=True))
+    if not paths:
+        raise FileNotFoundError(f"input.bg_images_dir={inp.bg_images_dir!r} holds no "
+                                ".jpg, .jpeg or .png image")
+    return paths
 
 
 def device_bank(model_bank, num_regions: int, device) -> dict:
@@ -157,21 +180,107 @@ def device_bank(model_bank, num_regions: int, device) -> dict:
             "sym_bank": sym_bank.to(device), "sym_mask": sym_mask.to(device)}
 
 
-def prep_train_batch(host_batch: dict, bank: dict, cfg: Config, device) -> dict:
-    """A host batch of the loader -> the training batch on ``device``:
-    ``build_train_batch_online`` plus the PM loss's model points."""
-    pc = cfg.model.pose_net
-    d = {k: torch.as_tensor(v).to(device) for k, v in host_batch.items()}
+def _mark(timer, name):
+    if timer is not None:
+        timer.mark(name)
+
+
+def _frames(host_batch: dict, d: dict, cfg: Config, device) -> dict:
+    """The batch's frames on the device: images / img_idx, the stacks the
+    masks are cropped from (mask_visib, mask_full) with their indices
+    (mask_idx, mask_full_idx), fg_masks and bg_images (with backgrounds),
+    depths / depth_idx (with depth). A pool batch gathers its images (and
+    foreground masks and backgrounds) from its snapshot of the pools once
+    its uploads are done; its masks and depth stay in the pools, indexed
+    by slot."""
+    with_depth = cfg.input.with_depth
+    if "pool_bufs" not in host_batch:
+        return {"images": d["images"], "img_idx": d["img_idx"], "mask_visib": d["mask_visib"],
+                "mask_full": d["mask_full"], "mask_idx": d["mask_idx"], "mask_full_idx": None,
+                "fg_masks": d.get("fg_masks"), "bg_images": d.get("bg_images"),
+                "depths": d["depths"] if with_depth else None, "depth_idx": d["img_idx"]}
+    bufs = host_batch["pool_bufs"]
+    if bufs["ready"] is not None:
+        torch.cuda.current_stream(device).wait_event(bufs["ready"])
+    f = {"images": bufs["rgb"][d["img_idx"].long()], "mask_visib": bufs["mask"],
+         "mask_full": bufs["mask"], "mask_idx": d["mask_idx"],
+         "mask_full_idx": d["mask_full_idx"], "fg_masks": None, "bg_images": None,
+         "depths": bufs["depth"] if with_depth else None,
+         "depth_idx": d["depth_idx"] if with_depth else None}
+    f["img_idx"] = torch.arange(f["images"].shape[0], device=f["images"].device)
+    if "bg_idx" in d:
+        f["fg_masks"] = bufs["mask"][d["mask_idx"].long()].float()
+        if cfg.input.truncate_fg and "trunc_draws" in d:
+            f["fg_masks"] = trunc_mask_batch(f["fg_masks"], d["trunc_draws"])
+        f["bg_images"] = bufs["bg"][d["bg_idx"].long()]
+    return f
+
+
+def prep_train_batch(host_batch: dict, bank: dict, cfg: Config, device, gens=None,
+                     timer=None) -> dict:
+    """A host batch of the loader (stacked, or slots into frame pools) ->
+    the training batch on ``device``, in the JAX package's order
+    (engine/trainer.py:188-308): background replacement, colour
+    augmentation, ``build_train_batch_online`` plus the PM loss's model
+    points, the foreground truncation folded into gt_mask_trunc where the
+    background was replaced, and with depth the depth augmentation and
+    ``roi_depth``. ``gens``: the trainer's generators; without them no
+    augmentation is drawn (a batch held apart to evaluate on). A pool
+    batch is released to the pools once every read of it is enqueued.
+    ``timer.mark`` is called after the host-to-device copies ("h2d"), the
+    augmentations ("aug"), the online batch ("batch") and, with depth, the
+    depth ROIs ("depth")."""
+    pc, inp = cfg.model.pose_net, cfg.input
+    d = {k: torch.as_tensor(v).to(device) for k, v in host_batch.items()
+         if k not in ("pool_bufs", "pool_mode")}
+    f = _frames(host_batch, d, cfg, device)
+    images, fg_masks, depths, depth_idx = f["images"], f["fg_masks"], f["depths"], f["depth_idx"]
+    _mark(timer, "h2d")
+    bg_gate = None
+    if gens is not None and inp.change_bg_prob > 0 and f["bg_images"] is not None:
+        draws = draw_replace_background(gens["bg"], images.shape[0], f["bg_images"].shape[0],
+                                        inp.change_bg_prob)
+        images, bg_gate = replace_background(images.float(), fg_masks, f["bg_images"], draws)
+    if gens is not None and inp.color_aug.prob > 0:
+        draws = draw_color_aug(gens["color"], tuple(images.shape), inp.color_aug.aug_type,
+                               inp.color_aug.prob)
+        images = apply_color_aug(images, draws, inp.color_aug.aug_type)
+    _mark(timer, "aug")
     batch = build_train_batch_online(
-        d["images"], d["img_idx"], d["centers"], d["scales"], d["bboxes_xyxy"], d["Ks"],
-        d["labels"], d["gt_rots"], d["gt_transes"], d["mask_visib"], d["mask_full"],
-        d["mask_idx"], bank["verts"], bank["faces"], bank["fps_points"], bank["extents"],
+        images, f["img_idx"], d["centers"], d["scales"], d["bboxes_xyxy"], d["Ks"],
+        d["labels"], d["gt_rots"], d["gt_transes"], f["mask_visib"], f["mask_full"],
+        f["mask_idx"], bank["verts"], bank["faces"], bank["fps_points"], bank["extents"],
         input_res=pc.input_res, output_res=pc.output_res,
-        pixel_mean=tuple(cfg.model.pixel_mean),
-        pixel_std=tuple(cfg.model.pixel_std),
+        pixel_mean=tuple(cfg.model.pixel_mean), pixel_std=tuple(cfg.model.pixel_std),
         xyz_bin=pc.geo_head.xyz_num_bins if pc.loss.xyz_loss_type == "CE_coor" else 0,
-        coord_2d_type=pc.pnp_net.coord_2d_type, xyz_bp=pc.xyz_bp)
+        mask_full_idx=f["mask_full_idx"], coord_2d_type=pc.pnp_net.coord_2d_type,
+        xyz_bp=pc.xyz_bp)
     batch["gt_points"] = bank["points"][batch["roi_labels"]]
+    if inp.truncate_fg and fg_masks is not None and bg_gate is not None:
+        # reference mask_trunc = mask_visib * trunc_mask (data_loader.py:522-532),
+        # only where the background was replaced: an image left as it is
+        # still shows the whole object
+        tm = roi_crop_resize(fg_masks[..., None], d["centers"], d["scales"], pc.output_res,
+                             method="nearest")[..., 0]
+        tm = torch.where(bg_gate[:, None, None] > 0, tm, torch.ones_like(tm))
+        batch["gt_mask_trunc"] = batch["gt_mask_trunc"] * tm
+    _mark(timer, "batch")
+    if inp.with_depth:
+        if gens is not None and inp.depth_aug:
+            if "pool_bufs" in host_batch:       # augment the gathered frames, not the pool
+                depths = depths[depth_idx.long()]
+                depth_idx = torch.arange(depths.shape[0], device=depths.device)
+            draws = draw_gdrn_depth_aug(
+                gens["depth"], tuple(depths.shape), drop_prob=inp.drop_depth_prob,
+                drop_ratio=inp.drop_depth_ratio, noise_prob=inp.add_noise_depth_prob,
+                noise_level=inp.add_noise_depth_level)
+            depths = gdrn_depth_aug(depths, draws)
+        batch["roi_depth"] = build_depth_rois(depths, depth_idx, d["centers"], d["scales"],
+                                              d["Ks"], input_res=pc.input_res,
+                                              bp_depth=inp.bp_depth)
+        _mark(timer, "depth")
+    if "pool_bufs" in host_batch:
+        host_batch["pool_bufs"]["release"]()
     return batch
 
 
@@ -196,8 +305,9 @@ def train_gdrn(cfg: Config, records, model_bank, records2=None,
     callable(state, iteration) -> dict, run every cfg.train.eval_period
     iterations, its results appended to metrics.json. With ``stats`` (a
     dict), fills in per-step device times of each phase (CUDA events, on
-    the card) and host waits on the loader. Returns the TrainState."""
-    check_slice(cfg)
+    the card), host waits on the loader and, with frame pools, their
+    ``stats()`` under "pool". Returns the TrainState."""
+    check_config(cfg)
     device = torch.device(device)
     if meta is None and cfg.datasets.train:
         meta = get_meta(cfg.datasets.train[0])
@@ -222,6 +332,7 @@ def train_gdrn(cfg: Config, records, model_bank, records2=None,
     state = create_train_state(model, build_optimizer(cfg, sched, model),
                                ema_decay=cfg.model.ema_decay,
                                ema_warmup=cfg.model.ema_warmup_updates)
+    state.generators = make_generators(cfg.train.seed, device)
     ckpt = CheckpointManager(os.path.join(cfg.output_dir, "ckpt"), max_to_keep=sc.max_to_keep)
     if resume and ckpt.restore_latest(state) is not None:
         print(f"resumed from iter {state.step}", flush=True)
@@ -235,14 +346,27 @@ def train_gdrn(cfg: Config, records, model_bank, records2=None,
     timer = StepTimer(enabled=stats is not None and device.type == "cuda")
     waits = []
 
+    inp, tc = cfg.input, cfg.train
+    bg_paths = bg_image_paths(cfg)
+    pools = None
+    if tc.device_pool_frames > 0:
+        from ..datasets.device_pool import FramePools
+        pools = FramePools(im_h, im_w, rgb_frames=tc.device_pool_frames,
+                           mask_frames=tc.device_pool_mask_frames or 2 * tc.device_pool_frames,
+                           depth_frames=tc.device_pool_frames if inp.with_depth else 0,
+                           bg_frames=tc.device_pool_bg_frames if bg_paths else 0, device=device)
+        print(f"device frame pools: {pools.nbytes / 1e9:.2f} GB on {device}", flush=True)
     loader = GdrnTrainLoader(
         records, sc.ims_per_batch, im_w, im_h, records2=records2,
-        ratio2=cfg.datasets.train2_ratio, dzi_pad_scale=cfg.input.dzi_pad_scale,
-        dzi_scale_ratio=cfg.input.dzi_scale_ratio, dzi_shift_ratio=cfg.input.dzi_shift_ratio,
-        dzi_type=cfg.input.dzi_type, bbox_type=cfg.model.bbox_type, seed=cfg.train.seed,
+        ratio2=cfg.datasets.train2_ratio, dzi_pad_scale=inp.dzi_pad_scale,
+        dzi_scale_ratio=inp.dzi_scale_ratio, dzi_shift_ratio=inp.dzi_shift_ratio,
+        dzi_type=inp.dzi_type, bbox_type=cfg.model.bbox_type, seed=tc.seed,
+        bg_paths=bg_paths, truncate_fg=inp.truncate_fg, with_depth=inp.with_depth,
         sampler=cfg.datasets.sampler, repeat_thresh=cfg.datasets.repeat_thresh,
-        num_workers=cfg.train.num_workers, num_builders=cfg.train.num_builders,
-        cache_gb=cfg.train.cache_gb)
+        num_workers=tc.num_workers, num_builders=1 if pools is not None else tc.num_builders,
+        cache_gb=tc.cache_gb, pools=pools)
+    gens = state.generators
+    drop = DropMasks(gen=gens["dropout"])
     try:
         t_w = time.perf_counter()
         host_batch = next(loader)
@@ -250,9 +374,9 @@ def train_gdrn(cfg: Config, records, model_bank, records2=None,
         data_wait_s = waits[-1]
         for it in range(start_iter, total_iters):
             timer.begin()
-            batch = prep_train_batch(host_batch, bank, cfg, device)
-            timer.mark("batch")
-            metrics = step_fn(state, batch, timer)
+            batch = prep_train_batch(host_batch, bank, cfg, device, gens=gens, timer=timer)
+            metrics = step_fn(state, batch, timer, drop=drop,
+                              progress=float(np.float32(it / max(total_iters, 1))))
             if (it + 1) % cfg.train.log_period == 0 or it == start_iter:
                 n_win = (it - start_iter) % cfg.train.log_period + 1
                 writer.write(it + 1, metrics, sched(it),
@@ -281,6 +405,8 @@ def train_gdrn(cfg: Config, records, model_bank, records2=None,
     if stats is not None:
         stats.update(timer.summary())
         stats["host_wait"] = [1e3 * w for w in waits]
+        if pools is not None:
+            stats["pool"] = pools.stats()
     return state
 
 

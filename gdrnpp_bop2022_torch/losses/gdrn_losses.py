@@ -8,7 +8,8 @@ CE, point matching (symmetric, R only or with t, disentangled), rotation,
 centroid, z, translation and the R^T t bind loss. Reductions follow the
 reference: sum over the mask / mask count for the dense heads, means for the
 pose heads. Dense tensors are channel-last (B, H, W, C); masks (B, H, W).
-``use_mtl`` (learned task-uncertainty weights) arrives with slice 3b.
+With ``use_mtl`` each term is weighted by the model's learned
+log-variance of its name.
 """
 
 from __future__ import annotations
@@ -171,7 +172,7 @@ def angular_rot_loss(pred_rots: torch.Tensor, gt_rots: torch.Tensor) -> torch.Te
 
 
 def compute_gdrn_losses(cfg, outputs: dict, batch: dict, sym_bank=None,
-                        sym_mask=None) -> dict:
+                        sym_mask=None, log_vars=None) -> dict:
     """The GDRN loss dict from the model's outputs and the batch's targets.
 
     outputs: vis_mask, full_mask (B, H, W), coor_x/y/z (B, H, W, C), region
@@ -179,11 +180,13 @@ def compute_gdrn_losses(cfg, outputs: dict, batch: dict, sym_bank=None,
     z_rel (B,). batch: gt_xyz (B, H, W, 3) [or gt_xyz_bin int],
     gt_mask_trunc/visib/obj/full (B, H, W), gt_region (B, H, W) int, gt_rot,
     gt_trans, gt_trans_ratio (B, 3), gt_points (B, N, 3), roi_extents,
-    roi_labels.
+    roi_labels. log_vars: name -> learned log-variance (the model's
+    ``log_vars`` output); with ``loss.use_mtl`` each loss_<name> becomes
+    L exp(-a) + log(1 + exp(a)) (reference GDRN_double_mask.py:531-535).
     """
     lc = cfg.model.pose_net.loss
-    if lc.use_mtl:
-        raise NotImplementedError("loss.use_mtl (learned task weights) arrives with slice 3b")
+    if lc.use_mtl and log_vars is None:
+        raise ValueError("loss.use_mtl weighs each term by the model's log_vars; none given")
     losses = {}
     gt_masks = {"trunc": batch["gt_mask_trunc"], "visib": batch["gt_mask_visib"],
                 "obj": batch.get("gt_mask_obj"), "full": batch.get("gt_mask_full")}
@@ -257,4 +260,10 @@ def compute_gdrn_losses(cfg, outputs: dict, batch: dict, sym_bank=None,
         pred_bind = torch.einsum("bji,bj->bi", outputs["rot_ego"], outputs["trans"])
         gt_bind = torch.einsum("bji,bj->bi", batch["gt_rot"], batch["gt_trans"])
         losses["loss_bind"] = _reduced_loss(pred_bind, gt_bind, lc.bind_loss_type) * lc.bind_lw
+
+    if lc.use_mtl:
+        for k in list(losses):
+            lv = log_vars.get(k[len("loss_"):])
+            if lv is not None:
+                losses[k] = losses[k] * torch.exp(-lv) + torch.log1p(torch.exp(lv))
     return losses

@@ -14,14 +14,14 @@ lowerings of it are TPU-specific and have no counterpart here.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from ...ops.layer_norm import layer_norm
-from ..layers import conv2d, get_act, linear
+from ..layers import DropMasks, need_masks, conv2d, get_act, linear
 
 
 class LayerNorm2d(nn.Module):
@@ -51,7 +51,9 @@ class Mlp(nn.Module):
 
 class ConvNeXtBlock(nn.Module):
     """dwconv 7x7 -> LN -> Linear 4x -> GELU -> Linear -> layer scale,
-    plus the shortcut. The MLP runs on the (N, H, W, C) view."""
+    plus the shortcut. The MLP runs on the (N, H, W, C) view. In training
+    with drop_path > 0, each sample's branch is kept with probability
+    1 - drop_path and scaled by its inverse (stochastic depth)."""
 
     def __init__(self, dim: int, layer_scale_init: float = 1e-6,
                  drop_path: float = 0.0, gelu_exact: bool = False,
@@ -65,16 +67,18 @@ class ConvNeXtBlock(nn.Module):
         self.act = get_act("gelu_exact" if gelu_exact else "gelu")
         self.gamma = nn.Parameter(torch.full((dim,), layer_scale_init))
 
-    def forward(self, x):
-        if self.training and self.drop_path > 0.0:
-            raise NotImplementedError(
-                "ConvNeXt drop_path in training arrives with slice 3b")
+    def forward(self, x, drop: Optional[DropMasks] = None):
         h = conv2d(self.conv_dw, x, self.dtype)
         h = h.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
         h = self.norm.forward_nhwc(h)
         h = self.act(linear(self.mlp.fc1, h, self.dtype))
         h = linear(self.mlp.fc2, h, self.dtype)
         h = h * self.gamma.to(h.dtype)
+        if self.training and self.drop_path > 0.0:
+            keep = 1.0 - self.drop_path
+            mask = need_masks(drop, "drop_path").bernoulli(keep, (h.shape[0], 1, 1, 1),
+                                                            h.device)
+            h = torch.where(mask, h / keep, torch.zeros_like(h))
         return x + h.permute(0, 3, 1, 2)
 
 
@@ -111,8 +115,11 @@ class ConvNeXtStage(nn.Module):
             ConvNeXtBlock(dim, drop_path=dp_rates[i], gelu_exact=gelu_exact,
                           dtype=dtype) for i in range(depth)])
 
-    def forward(self, x):
-        return self.blocks(self.downsample(x))
+    def forward(self, x, drop: Optional[DropMasks] = None):
+        x = self.downsample(x)
+        for blk in self.blocks:
+            x = blk(x, drop)
+        return x
 
 
 class ConvNeXt(nn.Module):
@@ -120,6 +127,9 @@ class ConvNeXt(nn.Module):
 
     Returns the features of ``out_indices`` (one tensor when there is one
     index); out_indices=(3,) gives the stride-32 map (B, dims[3], H/32, W/32).
+    drop_path rates rise linearly over the blocks from 0 to drop_path_rate
+    (GDRN builds it at 0, as the JAX package does); ``drop`` gives the
+    masks in training.
     """
 
     def __init__(self, depths: Sequence[int] = (3, 3, 27, 3),
@@ -140,11 +150,11 @@ class ConvNeXt(nn.Module):
             cur += depths[s]
         self.stages = nn.ModuleList(stages)
 
-    def forward(self, x):
+    def forward(self, x, drop: Optional[DropMasks] = None):
         x = self.stem(x)
         feats = []
         for s, stage in enumerate(self.stages):
-            x = stage(x)
+            x = stage(x, drop)
             if s in self.out_indices:
                 feats.append(x)
         return feats if len(feats) > 1 else feats[0]

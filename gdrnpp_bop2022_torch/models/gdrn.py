@@ -6,7 +6,8 @@ head and ``conv_pnp_net``, as RGB (``gdrn_double_mask``) or RGB-D
 (``gdrn_dstream_double_mask``: a second ConvNeXt, ``depth_backbone``, over
 the backprojected depth ROI, fused by channel concat or sum). The other
 backbones, heads and PnP nets, ConvFuseNet and cls2reg arrive in later
-slices and raise here.
+slices and raise here. With ``loss.use_mtl`` the model holds one learned
+log-variance per loss term (``log_var_<name>``, scalars).
 
 The public interface keeps the JAX package's layout: ``forward`` takes the
 batch dict of ``engine.batching.build_test_batch`` (roi_img (B, H, W, 3),
@@ -18,6 +19,8 @@ channels_last memory. Parameter names are the reference's torch names
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
@@ -28,6 +31,12 @@ from ..geometry.se3 import (pose_from_centroid_z_abs, pose_from_centroid_z_rel,
 from .backbones.convnext import convnext_base, convnext_small, convnext_tiny
 from .heads.conv_pnp_net import ConvPnPNet
 from .heads.top_down_head import TopDownDoubleMaskXyzRegionHead
+from .layers import DropMasks
+
+# the loss terms use_mtl weights, each as loss_<name>
+MTL_NAMES = ("mask", "mask_full", "coor_x", "coor_y", "coor_z", "region", "PM_R", "PM_RT",
+             "PM_xy", "PM_z", "PM_xy_noP", "PM_z_noP", "PM_T", "PM_T_noP", "centroid", "z",
+             "trans_xy", "trans_z", "trans_LPnP", "rot", "bind")
 
 _BACKBONES = {"convnext_tiny": (convnext_tiny, 768),
               "convnext_small": (convnext_small, 768),
@@ -97,9 +106,8 @@ class GDRN(nn.Module):
         if dstream and cfg.fuse_type not in ("cat", "add"):
             raise NotImplementedError(f"fuse_type {cfg.fuse_type!r} (ConvFuseNet) "
                                       "arrives with slice 5")
-        if "cls2reg" in cfg.name or cfg.loss.use_mtl:
-            raise NotImplementedError(f"GDRN variant {cfg.name!r} "
-                                      f"(use_mtl={cfg.loss.use_mtl}) arrives later")
+        if "cls2reg" in cfg.name:
+            raise NotImplementedError(f"GDRN variant {cfg.name!r} arrives later")
         if bb.out_index != 3:
             raise NotImplementedError("only the stride-32 feature (out_index 3)")
         build, feat_dim = _BACKBONES[bb.name]
@@ -140,20 +148,28 @@ class GDRN(nn.Module):
             denormalize_by_extent=pn.denormalize_by_extent,
             mask_attention=pn.mask_attention, output_res=cfg.output_res,
             dtype=dtype)
+        # learned task-uncertainty weighting (reference USE_MTL,
+        # GDRN_double_mask.py:54-64): one log-variance per loss term
+        self.mtl_names = MTL_NAMES if cfg.loss.use_mtl else ()
+        for name in self.mtl_names:
+            self.register_parameter(f"log_var_{name}", nn.Parameter(torch.zeros(())))
 
     def forward(self, roi_img, roi_labels, roi_coord_2d, roi_cams, roi_centers,
-                roi_whs, roi_extents, resize_ratios, roi_depth=None) -> dict:
+                roi_whs, roi_extents, resize_ratios, roi_depth=None,
+                drop: Optional[DropMasks] = None, progress: float = 1.0) -> dict:
+        """``drop`` gives drop_path's and DropBlock's masks in training,
+        ``progress`` (the share of the run done) DropBlock's ramp."""
         pc, pn = self.cfg, self.cfg.pnp_net
         xyz_dim, mask_dim, region_dim = self._dims
         if roi_img.shape[-1] != pc.backbone.in_channels:
             raise ValueError(f"roi_img has {roi_img.shape[-1]} channels but "
                              f"backbone.in_channels={pc.backbone.in_channels}")
         # (B, H, W, 3) contiguous -> NCHW view in channels_last memory
-        feat = self.backbone(roi_img.permute(0, 3, 1, 2))
+        feat = self.backbone(roi_img.permute(0, 3, 1, 2), drop)
         if self.depth_backbone is not None:
             if roi_depth is None:
                 raise ValueError("the dstream model needs roi_depth")
-            dfeat = self.depth_backbone(roi_depth.permute(0, 3, 1, 2))
+            dfeat = self.depth_backbone(roi_depth.permute(0, 3, 1, 2), drop)
             feat = (feat + dfeat if pc.fuse_type == "add"
                     else torch.cat([feat, dfeat], dim=1))
         geo = self.geo_head_net(feat, labels=roi_labels)
@@ -178,7 +194,8 @@ class GDRN(nn.Module):
                                        pc.loss.mask_loss_type).permute(0, 3, 1, 2)
         pred_rot_, pred_t_ = self.pnp_net(coor_feat, region=region_atten,
                                           extents=roi_extents,
-                                          mask_attention=mask_atten)
+                                          mask_attention=mask_atten, drop=drop,
+                                          progress=progress)
 
         if "rot6d" in pn.rot_type:
             rot_allo = rot6d_to_mat(pred_rot_)
@@ -202,7 +219,8 @@ class GDRN(nn.Module):
         vis, full = _nhwc(geo["vis_mask"]), _nhwc(geo["full_mask"])
         squeeze = mask_dim // 2 == 1
         return {
-            "log_vars": None,
+            "log_vars": ({n: getattr(self, f"log_var_{n}") for n in self.mtl_names}
+                         if self.mtl_names else None),
             "rot": rot_ego,
             "rot_allo": rot_allo,
             "trans": trans,
@@ -220,8 +238,8 @@ class GDRN(nn.Module):
 def build_gdrn(cfg: Config, device="cuda", train: bool = False) -> GDRN:
     """GDRN for ``cfg`` in ``cfg.model.compute_dtype`` on ``device`` (the
     card unless the caller asks for the CPU), in eval mode, or in train mode
-    for the trainer (the forward is the same; drop_path and DropBlock, which
-    raise in training when their rates are above 0, are all it switches)."""
+    for the trainer (the forward is the same; drop_path and DropBlock are
+    all it switches)."""
     model = GDRN(cfg.model.pose_net, dtype=_DTYPES[cfg.model.compute_dtype],
                  depth_in_chans=3 if cfg.input.bp_depth else 1)
     return model.to(device).train(train)

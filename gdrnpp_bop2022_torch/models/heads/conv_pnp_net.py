@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ..layers import Act, DropBlock2D, GroupNorm32, conv2d, get_act, linear
+from ..layers import Act, DropBlock2D, DropMasks, GroupNorm32, conv2d, get_act, linear
 
 
 def final_spatial(output_res: int, num_stride2_layers: int) -> int:
@@ -64,9 +64,11 @@ class ConvPnPNet(nn.Module):
 
     def forward(self, coor_feat: torch.Tensor, region: Optional[torch.Tensor] = None,
                 extents: Optional[torch.Tensor] = None,
-                mask_attention: Optional[torch.Tensor] = None):
+                mask_attention: Optional[torch.Tensor] = None,
+                drop: Optional[DropMasks] = None, progress: float = 1.0):
         """coor_feat (B, C, H, W) with xyz in channels 0:3 when C in (3, 5);
-        region (B, R, H, W); extents (B, 3); mask_attention (B, 1, H, W).
+        region (B, R, H, W); extents (B, 3); mask_attention (B, 1, H, W);
+        drop and progress: DropBlock's masks and ramp in training.
         Returns (rot (B, rot_dim), t (B, 3)) in fp32."""
         if coor_feat.shape[1] in (3, 5) and self.denormalize_by_extent \
                 and extents is not None:
@@ -79,7 +81,7 @@ class ConvPnPNet(nn.Module):
             x = torch.cat([x, mask_attention], dim=1)
         elif self.mask_attention != "none":
             raise ValueError(f"Wrong mask attention type: {self.mask_attention}")
-        x = self.dropblock(x.to(self.dtype))
+        x = self.dropblock(x.to(self.dtype), drop, progress)
         for i in range(0, len(self.features), 3):
             conv, gn, act = self.features[i:i + 3]
             x = act(gn(conv2d(conv, x, self.dtype)))

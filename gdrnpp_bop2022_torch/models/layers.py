@@ -1,7 +1,7 @@
 """Shared building blocks (NCHW tensors, channels_last memory).
 
-Port of ``gdrnpp_bop2022_tpu/models/layers.py`` as far as the GDRN serving
-path needs it. Parameters are fp32. A module built with ``dtype=bf16`` runs
+Port of ``gdrnpp_bop2022_tpu/models/layers.py`` as far as GDRN serving and
+training need it. Parameters are fp32. A module built with ``dtype=bf16`` runs
 its convolutions and linear layers in bf16 (weights cast at the call, as
 flax does with ``dtype=bf16, param_dtype=fp32``) while norms compute their
 statistics in fp32 and cast back.
@@ -9,7 +9,7 @@ statistics in fp32 and cast back.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, List, Optional
 
 import torch
 import torch.nn as nn
@@ -157,17 +157,64 @@ class Upsample2x(nn.Module):
         return upsample2x(x, self.method)
 
 
+class DropMasks:
+    """Where drop_path and DropBlock take their Bernoulli masks in training:
+    drawn from ``gen`` (a ``torch.Generator`` on the activations' device),
+    or taken from ``given``, a list of masks in the order the layers draw
+    them (a test feeds the masks the JAX package drew)."""
+
+    def __init__(self, gen: Optional[torch.Generator] = None,
+                 given: Optional[List[torch.Tensor]] = None):
+        if (gen is None) == (given is None):
+            raise ValueError("DropMasks takes a generator or a list of masks")
+        self.gen = gen
+        self.given = None if given is None else list(given)
+
+    def bernoulli(self, p: float, shape, device) -> torch.Tensor:
+        """A bool mask of ``shape``, True with probability p (u < p, as
+        jax.random.bernoulli)."""
+        if self.given is None:
+            return torch.rand(shape, generator=self.gen, device=device) < p
+        if not self.given:
+            raise ValueError("DropMasks: more draws than given masks")
+        m = self.given.pop(0).to(device=device, dtype=torch.bool)
+        if tuple(m.shape) != tuple(shape):
+            raise ValueError(f"DropMasks: given mask {tuple(m.shape)}, layer draws {tuple(shape)}")
+        return m
+
+
+def need_masks(drop: Optional[DropMasks], what: str) -> DropMasks:
+    if drop is None:
+        raise ValueError(f"{what} in training with a rate above 0 needs a DropMasks")
+    return drop
+
+
 class DropBlock2D(nn.Module):
-    """DropBlock: the identity at inference and at drop_prob 0. Its training
-    form with drop_prob > 0 arrives with slice 3b."""
+    """DropBlock with a linear ramp (reference
+    lib/torch_utils/layers/dropblock.py): the identity at inference and at
+    drop_prob 0. In training the rate is ``drop_prob * progress``, progress
+    in [0, 1] being the trainer's share of the run done (the JAX package
+    passes it instead of counting steps). Seeds drawn at
+    gamma = rate / bs^2 * HW / ((H - bs + 1)(W - bs + 1)) grow into bs x bs
+    blocks (a max pool, SAME); the kept activations are rescaled by the
+    kept share of each sample."""
 
     def __init__(self, drop_prob: float = 0.0, block_size: int = 5):
         super().__init__()
         self.drop_prob = drop_prob
         self.block_size = block_size
 
-    def forward(self, x):
-        if self.training and self.drop_prob > 0.0:
-            raise NotImplementedError(
-                "DropBlock2D in training arrives with slice 3b")
-        return x
+    def forward(self, x, drop: Optional[DropMasks] = None, progress: float = 1.0):
+        if not self.training or self.drop_prob == 0.0:
+            return x
+        drop = need_masks(drop, "DropBlock2D")
+        B, _, H, W = x.shape
+        bs = self.block_size
+        gamma = (self.drop_prob * progress / bs ** 2) * (H * W) / max(
+            (H - bs + 1) * (W - bs + 1), 1)
+        seeds = drop.bernoulli(gamma, (B, 1, H, W), x.device).float()
+        lo = (bs - 1) // 2
+        block = F.max_pool2d(F.pad(seeds, (lo, bs - 1 - lo, lo, bs - 1 - lo)), bs, stride=1)
+        keep = 1.0 - block
+        denom = keep.mean(dim=(1, 2, 3), keepdim=True).clamp_min(1e-6)
+        return (x.float() * keep / denom).to(x.dtype)

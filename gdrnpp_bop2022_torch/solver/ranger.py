@@ -1,13 +1,18 @@
 """Optimizers of the GDRN recipe: Ranger (RAdam + Lookahead + gradient
 centralization), RangerAdaBelief, Adam, AdamW and SGD, as one
 ``torch.optim.Optimizer`` family that updates whole parameter lists with
-``torch._foreach_*`` ops.
+``torch._foreach_*`` ops; the rest of the JAX package's zoo is in
+``solver/optimizers.py`` on the same base.
 
 Port of ``gdrnpp_bop2022_tpu/solver/ranger.py`` (``ranger``,
 ``build_optimizer``, ``scale_updates_by_module``; reference
 lib/torch_utils/solver/ranger.py) and of the optax transformations it
 chains. One ``step()`` applies, in the JAX package's order:
 
+  0. with ``solver.grad_accum_steps`` k > 1 (optax.MultiSteps): the
+     gradients go into a running mean, (g + n acc) / (n + 1); only every
+     k-th step runs 1-4 on that mean (and the trainer's EMA then advances),
+     the others change no parameter and return False;
   1. NaN/inf gradients to 0 (``solver.nan_grad_to_zero``), as
      ``where(isfinite(g), g, 0)``;
   2. clipping by the global norm (``solver.clip_grad_norm`` > 0): scaled by
@@ -17,14 +22,14 @@ chains. One ``step()`` applies, in the JAX package's order:
   4. the update times its parameter group's ``lr_mult`` (geo head, PnP net),
      then added to the parameters.
 
-Parameters are taken in blocks of one group and one (shape, dtype, device):
-ConvNeXt-base GDRN's 380 parameters make 33 blocks. Each step stacks a
-block's gradients and parameters into one (n, *shape) tensor, and the
-optimizer state lives stacked the same way (``state[p][name]`` is a view
-into it), so every pass of the chain and of the update is one op per block,
-or one ``_foreach_`` op over the blocks, rather than one per parameter. Only
-the last pass, adding the updates to the parameters, is a ``_foreach_`` op
-over every parameter.
+Parameters are taken in blocks of one group and one (shape, dtype, device,
+output-unit dim): ConvNeXt-base GDRN's 380 parameters make 33 blocks. Each
+step stacks a block's gradients and parameters into one (n, *shape) tensor,
+and the optimizer state lives stacked the same way (``state[p][name]`` is a
+view into it), so every pass of the chain and of the update is one op per
+block, or one ``_foreach_`` op over the blocks, rather than one per
+parameter. Only the last pass, adding the updates to the parameters, is a
+``_foreach_`` op over every parameter.
 
 The step count and the learning rate live on the host; the RAdam and bias
 correction scalars are computed from them in fp32 in the JAX package's order
@@ -35,7 +40,10 @@ Gradient centralization follows the JAX package, which centralizes over
 axes 1.. of the flax layout. Mapped onto torch layouts that is: 4-D conv
 (O, I, kh, kw) and ConvTranspose (I, O, kh, kw) weights over every dim but
 2; 2-D linear (O, I) weights over dim 0; 1-D tensors not at all. (The
-reference's torch Ranger keeps dim 0 of the torch layout instead.)
+reference's torch Ranger keeps dim 0 of the torch layout instead.) What the
+JAX package computes per output unit (the last flax axis) is per dim 0 of a
+conv or linear weight and dim 1 of a ConvTranspose weight here
+(``unit_dims``).
 """
 
 from __future__ import annotations
@@ -77,7 +85,9 @@ class ChainedOptimizer(torch.optim.Optimizer):
     taken. ``state[p][name]`` is a view into its block's stacked state."""
 
     def __init__(self, params, schedule, nan_grad_to_zero: bool = False,
-                 clip_grad_norm: float = 0.0):
+                 clip_grad_norm: float = 0.0, accum_steps: int = 1, unit_dims=None):
+        """unit_dims: id(parameter) -> the dim of its output unit (0 when
+        absent), see ``output_unit_dims``."""
         if callable(schedule):
             self.schedule = schedule
         else:
@@ -85,37 +95,49 @@ class ChainedOptimizer(torch.optim.Optimizer):
             self.schedule = lambda step: rate
         self.nan_grad_to_zero = nan_grad_to_zero
         self.clip_grad_norm = clip_grad_norm
+        self.accum_steps = accum_steps
+        self._unit_dims = dict(unit_dims or {})
         self._layout = (None, [])    # (parameter ids, blocks)
         self._stacked = {}           # (state name, block index) -> (n, *shape) tensor
-        super().__init__(params, {"lr_mult": 1.0, "count": 0})
+        super().__init__(params, {"lr_mult": 1.0, "count": 0, "mini_step": 0})
+
+    def unit_dim(self, p) -> int:
+        return self._unit_dims.get(id(p), 0)
 
     def _blocks(self):
-        """[(group, [params])], one entry per (group, shape, dtype, device),
-        in parameter order; recomputed when the parameters change."""
+        """[(group, [params])], one entry per (group, shape, dtype, device,
+        unit dim), in parameter order; recomputed when the parameters
+        change."""
         key = tuple(id(p) for g in self.param_groups for p in g["params"])
         if self._layout[0] != key:
             blocks = []
             for group in self.param_groups:
                 by_shape = {}
                 for p in group["params"]:
-                    by_shape.setdefault((p.shape, p.dtype, p.device), []).append(p)
+                    k = (p.shape, p.dtype, p.device, self.unit_dim(p))
+                    by_shape.setdefault(k, []).append(p)
                 blocks += [(group, ps) for ps in by_shape.values()]
             self._layout = (key, blocks)
             self._stacked = {}
         return self._layout[1]
 
-    def _grads(self, blocks):
-        """The chain's gradients, stacked per block: NaN-to-zero'd, clipped
-        and ``_precondition``-ed. ``p.grad`` itself is left as it is."""
+    @staticmethod
+    def _stacked_grads(blocks):
+        """The gradients stacked per block (zeros where a parameter has
+        none). ``p.grad`` itself is left as it is."""
         stacks = []
         for _, ps in blocks:
             for p in ps:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            s = torch.stack([p.grad for p in ps])
-            if self.nan_grad_to_zero:
-                s = torch.where(torch.isfinite(s), s, 0.0)
-            stacks.append(s)
+            stacks.append(torch.stack([p.grad for p in ps]))
+        return stacks
+
+    def _grads(self, stacks):
+        """The chain on stacked gradients: NaN-to-zero'd, clipped and
+        ``_precondition``-ed (in place where it can)."""
+        if self.nan_grad_to_zero:
+            stacks = [torch.where(torch.isfinite(s), s, 0.0) for s in stacks]
         if self.clip_grad_norm > 0:
             norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(stacks)))
             scale = torch.where(norm < self.clip_grad_norm, torch.ones_like(norm),
@@ -153,24 +175,42 @@ class ChainedOptimizer(torch.optim.Optimizer):
     def _updates(self, blocks, params, grads, count: int, lr: float):
         raise NotImplementedError
 
+    def _set_groups(self, key, value):
+        for group in self.param_groups:
+            group[key] = value
+
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None) -> bool:
+        """One optimizer step; True when it updated the parameters (always,
+        unless gradients are being accumulated)."""
         if closure is not None:
             raise ValueError("closures are not supported")
         blocks = self._blocks()
         if not blocks:
-            return
-        grads = self._grads(blocks)
+            return False
+        grads = self._stacked_grads(blocks)
+        if self.accum_steps > 1:
+            n = self.param_groups[0].get("mini_step", 0)
+            acc = self._state(blocks, grads, "acc_grad", torch.zeros_like)
+            for a, g in zip(acc, grads):
+                a.mul_(n).add_(g).div_(n + 1)
+            if n + 1 < self.accum_steps:
+                self._set_groups("mini_step", n + 1)
+                return False
+            self._set_groups("mini_step", 0)
+            grads = [a.clone() for a in acc]
+            torch._foreach_zero_(acc)
+        grads = self._grads(grads)
         params = [torch.stack(ps) for _, ps in blocks]
         count = self.param_groups[0]["count"] + 1
         updates = self._updates(blocks, params, grads, count, self.schedule(count - 1))
         for (group, _), u in zip(blocks, updates):
             if group["lr_mult"] != 1.0:
                 u.mul_(group["lr_mult"])
-        for group in self.param_groups:
-            group["count"] = count
+        self._set_groups("count", count)
         torch._foreach_add_([p for _, ps in blocks for p in ps],
                             [v for u in updates for v in u.unbind(0)])
+        return True
 
 
 class Ranger(ChainedOptimizer):
@@ -288,15 +328,21 @@ def param_groups(model: torch.nn.Module, lr_mults: dict) -> list:
     return out
 
 
+def output_unit_dims(model: torch.nn.Module) -> dict:
+    """id(parameter) -> the dim of its output unit, for the parameters
+    whose unit is not dim 0: ConvTranspose weights (I, O, kh, kw)."""
+    return {id(m.weight): 1 for m in model.modules()
+            if isinstance(m, torch.nn.ConvTranspose2d)}
+
+
 def build_optimizer(cfg, lr_schedule, model: torch.nn.Module) -> ChainedOptimizer:
     """The optimizer of ``cfg.solver`` for ``model`` (reference
-    core/utils/solver_utils.py:28-110): ranger | ranger_adabelief | adam |
-    adamw | sgd, chained with NaN-to-zero, clipping and the geo head's and
-    PnP net's lr_mult. The other optimizers of the JAX package's zoo and
-    gradient accumulation arrive with slice 3b."""
+    core/utils/solver_utils.py:28-110): ranger | ranger_adabelief | ranger21
+    | adam | adamw | sgd | sgd_gc | adamp | sgdp | adabelief | madgrad | lamb
+    | radam, chained with NaN-to-zero, clipping and the geo head's and PnP
+    net's lr_mult, with ``solver.grad_accum_steps`` micro-steps per update."""
+    from . import optimizers as zoo
     sc = cfg.solver
-    if sc.grad_accum_steps > 1:
-        raise NotImplementedError("solver.grad_accum_steps > 1 arrives with slice 3b")
     pc = cfg.model.pose_net
     lr_mults = {}
     if pc.geo_head.lr_mult != 1.0:
@@ -304,17 +350,29 @@ def build_optimizer(cfg, lr_schedule, model: torch.nn.Module) -> ChainedOptimize
     if pc.pnp_net.lr_mult != 1.0:
         lr_mults["pnp_net."] = pc.pnp_net.lr_mult
     groups = param_groups(model, lr_mults)
-    chain = dict(nan_grad_to_zero=sc.nan_grad_to_zero, clip_grad_norm=sc.clip_grad_norm)
+    chain = dict(nan_grad_to_zero=sc.nan_grad_to_zero, clip_grad_norm=sc.clip_grad_norm,
+                 accum_steps=sc.grad_accum_steps, unit_dims=output_unit_dims(model))
+    wd, mom = sc.weight_decay, sc.momentum
+    build = {
+        "ranger": lambda: Ranger(groups, lr_schedule, weight_decay=wd, **chain),
+        "rangeradabelief": lambda: Ranger(groups, lr_schedule, weight_decay=wd, belief=True,
+                                          **chain),
+        "ranger21": lambda: zoo.Ranger21(groups, lr_schedule, weight_decay=wd, **chain),
+        "adamp": lambda: zoo.AdamP(groups, lr_schedule, weight_decay=wd, **chain),
+        "sgdp": lambda: zoo.SGDP(groups, lr_schedule, momentum=mom, weight_decay=wd, **chain),
+        "adamw": lambda: Adam(groups, lr_schedule, weight_decay=wd, **chain),
+        "adam": lambda: Adam(groups, lr_schedule, **chain),
+        "sgd": lambda: SGD(groups, lr_schedule, momentum=mom, **chain),
+        "lamb": lambda: zoo.Lamb(groups, lr_schedule, weight_decay=wd, **chain),
+        "radam": lambda: zoo.RAdam(groups, lr_schedule, **chain),
+        "adabelief": lambda: zoo.AdaBelief(groups, lr_schedule, weight_decay=wd, **chain),
+        "madgrad": lambda: zoo.Madgrad(groups, lr_schedule, momentum=mom, weight_decay=wd,
+                                       **chain),
+        "sgd_gc": lambda: zoo.SGDGC(groups, lr_schedule, momentum=mom, weight_decay=wd,
+                                    **chain),
+    }
+    build["ranger_adabelief"] = build["rangeradabelief"]
     name = sc.optimizer.lower()
-    if name == "ranger":
-        return Ranger(groups, lr_schedule, weight_decay=sc.weight_decay, **chain)
-    if name in ("rangeradabelief", "ranger_adabelief"):
-        return Ranger(groups, lr_schedule, weight_decay=sc.weight_decay, belief=True, **chain)
-    if name == "adamw":
-        return Adam(groups, lr_schedule, weight_decay=sc.weight_decay, **chain)
-    if name == "adam":
-        return Adam(groups, lr_schedule, **chain)
-    if name == "sgd":
-        return SGD(groups, lr_schedule, momentum=sc.momentum, **chain)
-    raise NotImplementedError(f"optimizer {sc.optimizer!r} arrives with slice 3b "
-                              "(ranger, ranger_adabelief, adam, adamw, sgd are ported)")
+    if name not in build:
+        raise ValueError(f"unknown optimizer {sc.optimizer}")
+    return build[name]()

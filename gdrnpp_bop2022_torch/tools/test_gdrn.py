@@ -133,6 +133,16 @@ def run_eval(cfg, meta, bank, model, device="cuda", seed: int = 0):
     return results, scores
 
 
+def weights_to_serve(payload: dict, ema_enabled: bool) -> dict:
+    """The state dict to serve from a loaded ``--weights`` file: a training
+    checkpoint's EMA weights when it has them and ``model.ema_enabled`` is
+    set (as the JAX tools/test_gdrn.py serves ``ema_params``), else its
+    ``model`` weights; a plain state dict as it is."""
+    if ema_enabled and "ema" in payload:
+        return payload["ema"]
+    return payload.get("model", payload)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="default",
@@ -160,8 +170,8 @@ def main(argv=None):
         num_fps=cfg.model.pose_net.geo_head.num_regions)
     model = build_gdrn(cfg, device=args.device)
     if args.weights:
-        sd = torch.load(args.weights, map_location="cpu")
-        sd = sd.get("model", sd)
+        sd = weights_to_serve(torch.load(args.weights, map_location="cpu"),
+                              cfg.model.ema_enabled)
     else:
         sd = seeded_state_dict(model, args.seed)
     model.load_state_dict(sd, strict=True)

@@ -4,7 +4,7 @@ The port's counterpart of ``tools/train_gdrn.py`` (reference
 core/gdrn_modeling/main_gdrn.py + train_gdrn.sh):
 
     python -m gdrnpp_bop2022_torch.tools.train_gdrn --config ycbv_convnext_base \
-        [--opts input.color_aug.prob=0 solver.base_lr=1e-4 ...] [--max-iters N] \
+        [--opts solver.base_lr=1e-4 ...] [--max-iters N] \
         [--resume] [--eval-only] [--device cpu]
 
 ``--config`` is ``default`` (``Config()``) or a name from
@@ -15,7 +15,8 @@ The model bank is read with ``num_fps = geo_head.num_regions`` and
 ``max_faces = pose_net.gt_max_faces``. With ``train.eval_period > 0`` and
 ``datasets.det_files_test``, the EMA weights (or the weights, without
 ``model.ema_enabled``) are scored periodically on ``datasets.test`` through
-``run_gdrn_inference`` + ``score_bop_results`` (mssd, mspd).
+``run_gdrn_inference`` + ``score_bop_results`` (mssd, mspd), with depth
+ROIs for an RGB-D config.
 ``--eval-only`` serves and scores the newest checkpoint with
 ``tools.test_gdrn.run_eval``. Runs on the card unless ``--device cpu``.
 """
@@ -65,10 +66,15 @@ def make_eval_fn(cfg, meta, bank, device):
     def eval_fn(state, iteration):
         eval_model.load_state_dict(state.ema_state_dict() if cfg.model.ema_enabled
                                    else state.model.state_dict(), strict=True)
+        # RGB-D models take depth ROIs at evaluation too (reference
+        # data_loader.py:522-533)
         results = run_gdrn_inference(
-            eval_model, iter_test_batches(by_im, dets, batch_size=64), bank.extents,
-            input_res=pc.input_res, output_res=pc.output_res,
+            eval_model, iter_test_batches(by_im, dets, batch_size=64,
+                                          with_depth=cfg.input.with_depth,
+                                          depth_factor=meta.depth_factor),
+            bank.extents, input_res=pc.input_res, output_res=pc.output_res,
             pixel_mean=cfg.model.pixel_mean, pixel_std=cfg.model.pixel_std,
+            with_depth_input=cfg.input.with_depth, bp_depth=cfg.input.bp_depth,
             coord_2d_type=pc.pnp_net.coord_2d_type)
         scores = score_bop_results(results, gt_rows, bank, im_width=meta.width,
                                    errors=("mssd", "mspd"), device=device)

@@ -134,8 +134,13 @@ def state_dict_from_flax(params: dict, cfg: Config) -> Dict[str, torch.Tensor]:
     }
     if "depth_backbone" in params:          # the RGB-D dual-stream variant
         parts["depth_backbone"] = _convnext(params["depth_backbone"], depths)
-    return {f"{prefix}.{k}": torch.from_numpy(np.ascontiguousarray(v, np.float32))
-            for prefix, sd in parts.items() for k, v in sd.items()}
+    out = {f"{prefix}.{k}": torch.from_numpy(np.ascontiguousarray(v, np.float32))
+           for prefix, sd in parts.items() for k, v in sd.items()}
+    # loss.use_mtl's learned log-variances: top-level scalars of one name
+    # in both trees
+    out.update({k: torch.from_numpy(np.asarray(v, np.float32).copy())
+                for k, v in params.items() if k.startswith("log_var_")})
+    return out
 
 
 def seeded_state_dict(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor]:

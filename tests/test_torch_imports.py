@@ -43,5 +43,7 @@ def test_port_imports_no_jax():
               "tools.score_csv", "tools.test_gdrn", "ops.region", "losses.gdrn_losses",
               "solver.lr_scheduler", "solver.ranger", "engine.train_state",
               "engine.train_step", "engine.checkpoint", "engine.trainer",
-              "datasets.train_loader", "utils.tb_writer", "utils.vis", "tools.train_gdrn"):
+              "datasets.train_loader", "utils.tb_writer", "utils.vis", "tools.train_gdrn",
+              "ops.color_space", "ops.color_aug", "ops.depth_aug", "datasets.device_pool",
+              "solver.optimizers"):
         assert f"gdrnpp_bop2022_torch.{m}" in out["modules"], m

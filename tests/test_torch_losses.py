@@ -6,7 +6,8 @@ and the port: xyz L1 and CE_coor (with each mask target), the mask losses
 L1 / BCE / dice / RW_BCE, region CE, point matching (symmetric through a
 symmetry bank, R only, RT, disentangled t and z with and without points,
 smooth L1), rotation (angular, MSE), centroid, z (REL, ABS), translation
-(disentangled or not, L1 / L2) and bind, and a frozen geo head. Each loss
+(disentangled or not, L1 / L2) and bind, a frozen geo head, and the
+learned task weights of ``use_mtl``. Each loss
 value and the gradient of the total with respect to every model output
 agree at 1e-5 (relative and absolute).
 """
@@ -140,8 +141,46 @@ def test_losses_and_grads_match_jax(case):
 
 
 def test_use_mtl_raises():
-    cfg = replace_cfg(Config(), {L + "use_mtl": True})
+    """use_mtl: every term weighted by its learned log-variance, L exp(-a) +
+    log(1 + exp(a)), equal to the JAX package's dict at 1e-5 with the
+    gradients of the total with respect to the outputs and the
+    log-variances; without log-variances the port raises (it would train
+    another recipe) where the JAX package leaves the terms unweighted."""
+    from gdrnpp_bop2022_torch.models.gdrn import MTL_NAMES
+    over = dict(CASES["ce_bce_dice_rot_bind"], **{
+        L + "use_mtl": True, "model.pose_net.num_classes": NCLS,
+        "model.pose_net.geo_head.num_regions": NREG, "model.pose_net.geo_head.xyz_num_bins": BINS})
+    cfg = replace_cfg(Config(), over)
+    jcfg = jreplace(JConfig(), over)
     outputs, batch = _data(cfg)
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        compute_gdrn_losses(cfg, {k: torch.from_numpy(v) for k, v in outputs.items()},
-                            {k: torch.from_numpy(v) for k, v in batch.items()})
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    jsym, tsym = j_sym_bank(_sym_banks()), build_sym_bank(_sym_banks())
+    with pytest.raises(ValueError, match="log_vars"):
+        compute_gdrn_losses(cfg, {k: torch.from_numpy(v) for k, v in outputs.items()}, tb, *tsym)
+    lv = {n: np.float32(v) for n, v in
+          zip(MTL_NAMES, np.random.RandomState(5).randn(len(MTL_NAMES)) * 0.5)}
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def jtotal(outs, lvs):
+        d = j_losses(jcfg, outs, jb, sym_bank=jsym[0], sym_mask=jsym[1], log_vars=lvs)
+        return sum(d.values()), d
+
+    (jt, jd), (jgo, jgl) = jax.value_and_grad(jtotal, argnums=(0, 1), has_aux=True)(
+        {k: jnp.asarray(v) for k, v in outputs.items()}, {k: jnp.asarray(v) for k, v in lv.items()})
+    touts = {k: torch.from_numpy(v).requires_grad_() for k, v in outputs.items()}
+    tlv = {k: torch.tensor(v, requires_grad=True) for k, v in lv.items()}
+    td = compute_gdrn_losses(cfg, touts, tb, *tsym, log_vars=tlv)
+    assert set(td) == set(jd) and len(td) >= 8
+    for k in jd:
+        np.testing.assert_allclose(float(td[k]), float(jd[k]), rtol=1e-5, atol=1e-5, err_msg=k)
+    total = sum(td.values())
+    total.backward()
+    for k in OUT_KEYS:
+        g = touts[k].grad
+        want = np.asarray(jgo[k])
+        got = np.zeros_like(want) if g is None else g.numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5, err_msg=k)
+    for k in lv:
+        g = tlv[k].grad
+        np.testing.assert_allclose(0.0 if g is None else float(g), float(jgl[k]), rtol=1e-5,
+                                   atol=1e-5, err_msg=f"log_var_{k}")

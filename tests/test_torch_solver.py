@@ -243,9 +243,15 @@ def test_chain_nan_clip_lr_mult_match_jax(opt_name):
 
 
 def test_build_optimizer_refuses_what_waits():
+    """Every optimizer of the JAX package's zoo builds, as does gradient
+    accumulation (their parity: tests/test_torch_solver_zoo.py); a name the
+    JAX package does not know raises, as there."""
     model = _Tiny({"backbone": np.zeros((2, 2), np.float32),
                    "geo_head": np.zeros((1, 1, 1, 1), np.float32),
                    "pnp_net": np.zeros(2, np.float32)})
-    for over in ({"solver.optimizer": "madgrad"}, {"solver.grad_accum_steps": 2}):
-        with pytest.raises(NotImplementedError, match="slice 3b"):
-            build_optimizer(replace_cfg(Config(), over), 1e-3, model)
+    opt = build_optimizer(replace_cfg(Config(), {"solver.optimizer": "madgrad"}), 1e-3, model)
+    assert type(opt).__name__ == "Madgrad"
+    opt = build_optimizer(replace_cfg(Config(), {"solver.grad_accum_steps": 2}), 1e-3, model)
+    assert isinstance(opt, Ranger) and opt.accum_steps == 2
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        build_optimizer(replace_cfg(Config(), {"solver.optimizer": "nope"}), 1e-3, model)

@@ -11,7 +11,8 @@
     (last logged < 0.85 x first, lowest < 0.80 x first; logged at steps 1,
     10 and 20);
   * the checkpoint restores params, EMA and optimizer state bit for bit;
-  * what waits for slice 3b raises;
+  * the trainer refuses offline XYZ (as the JAX one does) and nothing
+    else of the two recipes' options;
   * ``python -m gdrnpp_bop2022_torch.tools.train_gdrn`` runs 2 steps with
     ``--device cpu``, with the periodic evaluation and the batch dump, and
     ``--eval-only`` scores its checkpoint; a pretrained backbone loads.
@@ -33,7 +34,7 @@ from gdrnpp_bop2022_torch.datasets.meta import DatasetMeta, register_meta
 from gdrnpp_bop2022_torch.datasets.train_loader import GdrnTrainLoader
 from gdrnpp_bop2022_torch.engine.checkpoint import CheckpointManager
 from gdrnpp_bop2022_torch.engine.train_state import create_train_state
-from gdrnpp_bop2022_torch.engine.trainer import check_slice, train_gdrn
+from gdrnpp_bop2022_torch.engine.trainer import check_config, train_gdrn
 from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
 from gdrnpp_bop2022_torch.solver.ranger import build_optimizer
 from gdrnpp_bop2022_torch.tools import train_gdrn as cli
@@ -149,10 +150,17 @@ def test_train_loss_falls_and_checkpoint_restores(synth, tmp_path):
     {"model.pose_net.xyz_online": False},
     {"input.bg_images_dir": "/bg", "input.color_aug": {"prob": 0.0}}])
 def test_slice_3b_configs_raise(over):
+    """Colour augmentation, backgrounds and truncation, depth, pools, DropBlock
+    and use_mtl train; offline XYZ alone raises, as in
+    the JAX package's trainer (engine/trainer.py:98-108)."""
     base = {"input.color_aug": {"prob": 0.0}, "input.bg_images_dir": ""}
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        check_slice(replace_cfg(Config(), dict(base, **over)))
-    check_slice(replace_cfg(Config(), base))             # the slice's own config
+    cfg = replace_cfg(Config(), dict(base, **over))
+    if "model.pose_net.xyz_online" in over:
+        with pytest.raises(NotImplementedError, match="xyz_online=False"):
+            check_config(cfg)
+    else:
+        check_config(cfg)
+    check_config(replace_cfg(Config(), base))
 
 
 def test_cli_trains_two_steps_on_the_cpu(synth, tmp_path, capsys):

@@ -51,7 +51,7 @@ def random_like_tree(template, seed: int):
             v = 0.1 * rs.randn(*shape)
         else:
             v = rs.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
-        leaves.append(v.astype(np.float32))
+        leaves.append(np.asarray(v, np.float32))     # scalar leaves: randn() is a float
     return jax.tree_util.tree_unflatten(treedef, leaves)
 
 
@@ -83,6 +83,30 @@ def port_gdrn(cfg: Config, params) -> torch.nn.Module:
     model = build_gdrn(cfg, device="cpu")
     model.load_state_dict(state_dict_from_flax(params, cfg), strict=True)
     return model
+
+
+def flax_params_from_port(sd: dict, cfg: Config, template: dict) -> dict:
+    """The port's state dict (numpy arrays) as the JAX package's parameter
+    tree: the JAX package's ``convert_gdrn_checkpoint`` for the network
+    (both backbones of the dual stream included), and the top-level
+    ``log_var_*`` scalars of ``loss.use_mtl`` under their own names."""
+    from gdrnpp_bop2022_tpu.models.gdrn import xyz_mask_region_out_dims
+    from gdrnpp_bop2022_tpu.utils.torch_port import convert_gdrn_checkpoint
+    from gdrnpp_bop2022_torch.models.heads.conv_pnp_net import final_spatial
+
+    pc = cfg.model.pose_net
+    xyz, mask, region = xyz_mask_region_out_dims(pc)
+    depths = {"convnext_tiny": (3, 3, 9, 3)}.get(pc.backbone.name, (3, 3, 27, 3))
+    net = {k: v for k, v in sd.items() if not k.startswith("log_var_")}
+    out = convert_gdrn_checkpoint(
+        net, template, depths=depths, up_types=pc.geo_head.up_types,
+        num_conv_per_block=pc.geo_head.num_conv_per_block,
+        num_stride2_layers=pc.pnp_net.num_stride2_layers,
+        num_extra_layers=pc.pnp_net.num_extra_layers, flat_op=pc.pnp_net.flat_op,
+        final_spatial=final_spatial(pc.output_res, pc.pnp_net.num_stride2_layers),
+        mask_out_dim=mask, xyz_out_dim=xyz, region_out_dim=region, num_classes=pc.num_classes)
+    out.update({k: np.asarray(v, np.float32) for k, v in sd.items() if k.startswith("log_var_")})
+    return out
 
 
 def roi_batch(cfg: Config, B: int, seed: int = 0) -> dict:
