@@ -19,8 +19,10 @@ BOP scorer (VSD through B2 at image size, the port's ``score_csv`` CLI) on
 the RGB-D scene; then GDRN training of both BOP'22 recipes as configured
 (``configs.ycbv_convnext_base()`` and ``configs.ycbv_convnext_base_rgbd()``
 through ``engine.trainer.train_gdrn`` on a synthetic BOP train split, with
-colour, background and depth augmentation, and in pool mode); and checks the
-models on the card against the same models on the CPU in fp32. It prints its
+colour, background and depth augmentation, and in pool mode); then the YOLOX
+detector at the BOP'22 recipe and the two-stage path (images -> detections
+-> handoff json -> poses -> scores); and checks the models on the card
+against the same models on the CPU in fp32. It prints its
 wall time. Phases:
 
   1. device: name, versions, power limit; build both kernels (one nvcc
@@ -58,7 +60,7 @@ wall time. Phases:
      pair whose plan fits a bucket; the RGB-D CSV through
      ``python -m gdrnpp_bop2022_torch.tools.score_csv``;
   9. card vs CPU parity of the RGB and the RGB-D flagship in fp32 (run
-     last, after phase 11);
+     last, after phase 13);
  10. training: B1's backward kernel vs its plain version (autograd through
      layer_norm_ref) at the four ConvNeXt-base shapes at batch 48 and on the
      scalar path, with hot / cold times beside the plain version, aten's
@@ -87,7 +89,22 @@ wall time. Phases:
      batch / depth aug + depth ROIs / forward + backward / optimizer + EMA),
      peak memory, the trainable-loss criterion, EMA != params, the
      checkpoint bit for bit, the busy share of three profiled steps, and one
-     tiny dual-stream fp32 step card vs CPU.
+     tiny dual-stream fp32 step card vs CPU;
+ 12. the detector: the BOP'22 recipe ``configs.yolox("ycbv")`` (yolox-x at
+     640x640, 21 classes, bf16), GN and BN (BN with drawn running
+     statistics), at batch 8 on the RGB-D scene's 24 letterboxed images:
+     forward, plain detection and TTA (5 scales x flip, one joint NMS) times
+     by CUDA events with images/s, the NMS's ms and share of a batch,
+     kernels and copies a batch, peak memory; the card's NMS equal to a
+     numpy greedy NMS on the same raw rows (plain and TTA); the card against
+     the CPU in fp32 on 2 images; GT boxes scored as detections by
+     ``coco_map`` (100/101, its ceiling);
+ 13. two-stage: ``python -m gdrnpp_bop2022_torch.tools.test_yolox --config
+     ycbv`` (TTA) on the scene -> the handoff json -> ``test_gdrn`` with
+     ``model.load_dets_test=True`` (B1's launches counted, ROI/s) -> its CSV
+     through ``python -m gdrnpp_bop2022_torch.tools.score_csv``; then
+     ``python -m gdrnpp_bop2022_torch.tools.demo_gdrn`` with yolox-x inline
+     on 4 images.
 
 The scene's sensor depth is analytic (ray-ellipsoid), never rendered by the
 kernel under test. Any failure raises (exit code 1). Without a CUDA device
@@ -235,6 +252,18 @@ DSTREAM = {"model.pose_net.name": "gdrn_dstream_double_mask",
 POOL_FRAMES = 64
 POOL_BATCHES = 3
 POOL_STEPS = 6
+# phases 12-13: the BOP'22 detector recipe configs.yolox("ycbv") (yolox-x at
+# 640x640, 21 classes, bf16; TTA at 5 scales x flip, conf 0.001, NMS 0.65) at
+# batch DET_BATCH on the RGB-D scene's 24 images, GN and BN, weights from the
+# seed; the plain path at the flag default conf DET_CONF_PLAIN; DET_REPS timed
+# batches a path. Card vs CPU in fp32 on 2 images: raw outputs within
+# DET_PARITY_TOL of each level's largest magnitude (cuDNN and oneDNN sum ~155
+# convolutions in another order). demo_gdrn runs on DEMO_IMAGES images.
+DET_BATCH = 8
+DET_CONF_PLAIN = 0.01
+DET_REPS = 5
+DET_PARITY_TOL = 1e-3
+DEMO_IMAGES = 4
 
 
 def check(cond, msg):
@@ -326,7 +355,7 @@ def kernel_ms(fn, names, iters=20, per_call=None):
 
 def phase_device():
     name = torch.cuda.get_device_name(0)
-    log(f"[1/11] device: {name} x{torch.cuda.device_count()}  torch "
+    log(f"[1/13] device: {name} x{torch.cuda.device_count()}  torch "
         f"{torch.__version__}  CUDA {torch.version.cuda}  python "
         f"{sys.version.split()[0]}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -340,7 +369,7 @@ def phase_device():
     build_kernel_libraries(["layer_norm", "raster"])    # nvcc, both at once
     for lib in ("layer_norm", "raster"):
         load_kernel_library(lib)
-    log(f"[1/11] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
+    log(f"[1/13] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s")
     return name, card
 
@@ -397,11 +426,11 @@ def ln_times(card):
         for key, v in zip(t, (k, kc, p, lib, libc, cp)):
             t[key] += n * v
         n_bytes += n * (2 * x.numel() * x.element_size() + 2 * C * 4)
-        log(f"[2/11] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
+        log(f"[2/13] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
             f"{kc:.4f} ms, plain {p:.4f} ms, F.layer_norm hot {lib:.4f} ms cold {libc:.4f} ms,"
             f" copy_ cold {cp:.4f} ms")
     t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[2/11] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
+    log(f"[2/13] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
         f"{t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms ({100 * t['bound_ms'] / t['cold_ms']:.1f}% "
         f"of the bound cold); plain {t['plain_ms']:.4f} ms; F.layer_norm hot "
         f"{t['library_ms']:.4f} ms, cold {t['library_cold_ms']:.4f} ms; copy_ of the same "
@@ -429,7 +458,7 @@ def phase_kernels(card):
         want = off == 0 and C * x.element_size() % 16 == 0
         check(vec == want, f"B1 path for C={C} {dt} offset {off}: vector={vec}")
         worst = max(worst, err)
-        log(f"[2/11] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
+        log(f"[2/13] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
             f"{'vector' if vec else 'scalar'} path: max_abs_err={err:.3g}")
         check(ok, f"B1 disagrees with its plain version at rows={rows} C={C} "
                   f"{dt} offset {off}: max abs err {err}")
@@ -676,7 +705,7 @@ def seam_scene(n=8, device="cuda"):
             dev(np.zeros((n, 3), np.float32)), dev(K), 64, 64)
 
 
-def _raster_case(label, verts, faces, R, t, K, H, W, tag="[3/11]"):
+def _raster_case(label, verts, faces, R, t, K, H, W, tag="[3/13]"):
     """The pack kernel vs the torch packing and the cull rule, and the
     kernel (both modes) vs plain (both modes), at one shape; returns the
     worst depth / xyz errors."""
@@ -803,7 +832,7 @@ def phase_raster(card, scene, bank):
     # faces per tile after culling, and the bound, at the flagship
     bd = raster_bound(*flag)
     pt = bd["per_tile"].float()
-    log(f"[3/11] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
+    log(f"[3/13] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
         f"{float(pt.mean()):.1f}, max {int(pt.max())} of {F}; {bd['pairs']:.4e} pixel-face "
         f"pairs inside the boxes vs {bd['all_pairs']:.4e} all pairs")
     # times at the flagship, depth only (the mode depth refinement runs)
@@ -826,14 +855,14 @@ def phase_raster(card, scene, bank):
                                                   max_block=PLAIN_MAX_BLOCK), iters=3,
                    warmup=1)
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"          # noqa: E731
-    log(f"[3/11] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
+    log(f"[3/13] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
         f"{t['cold_ms']:.4f} ms (2 launches; the raster kernel alone {kernel_only_ms:.4f} ms "
         f"by events, {fmt(t['kernel_ms'])} by the profiler, the pack kernel "
         f"{fmt(t['pack_kernel_ms'])}); attribute mode {k_attr_ms:.4f} ms; plain "
         f"{p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms ({bd['pairs']:.4e} tests x "
         f"{RASTER_OPS_PER_TEST} fp32 ops at 67 TFLOP/s, {bd['bound_by']}), all-pairs bound "
         f"{bd['all_pairs_bound_ms']:.4f} ms  [{card}]")
-    log(f"[3/11] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
+    log(f"[3/13] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
         f"kernels {full_ms:.4f} ms of device time per call  [{card}]")
     vsd = [_vsd_shape(card, vsd_shape_input(scene, bank, np.random.RandomState(SEED + 20 + i),
                                             n, bh, bw), n)
@@ -927,7 +956,7 @@ def _vsd_shape(card, inp, n):
     bd = raster_bound(*inp)
     pt = bd["per_tile"].float()
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
-    log(f"[3/11] B2 {label} ({faces.shape[1]} faces): == plain version bit for bit "
+    log(f"[3/13] B2 {label} ({faces.shape[1]} faces): == plain version bit for bit "
         f"({int(hit.sum())} px hit); hot {hot:.4f} ms, cold {cold:.4f} ms per call (the "
         f"raster kernel {fmt(k['raster_kernel'])}, pack {fmt(k['pack_faces_kernel'])}; the "
         f"raster kernel on empty boxes, i.e. its box tests alone, {fmt(box_ms)}); faces per "
@@ -1036,11 +1065,11 @@ def phase_slice(card, tmp):
     check(launches == LN_PER_FORWARD * forwards[0],
           f"layer_norm launches {launches} != 40 x {forwards[0]} forwards")
     orth = _check_rows(results, n_rois, tmp, "rgb")
-    log(f"[4/11] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
+    log(f"[4/13] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
         f"batches of {BATCH} + warm-up: {forwards[0]} forwards, layer_norm "
         f"launches {launches} = 40 x {forwards[0]}; rows finite, "
         f"max|R^T R - I| = {orth:.2e}; CSV {len(results)} rows")
-    log(f"[4/11] RGB serving (ROI crop + forward + decode, host clock after "
+    log(f"[4/13] RGB serving (ROI crop + forward + decode, host clock after "
         f"synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -1055,7 +1084,7 @@ def phase_slice(card, tmp):
                               dev(b0["labels"]), dev(extents).float(),
                               input_res=pc.input_res, output_res=pc.output_res)
         fwd_ms = cuda_ms(lambda: model(**rb), iters=10)
-    log(f"[4/11] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[4/13] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s  [{card}]")
     serve = {"model": model, "forwards": forwards, "extents": extents, "kw": kw,
              "batches": lambda: iter_test_batches(by_im, dets, batch_size=BATCH),
@@ -1120,13 +1149,13 @@ def phase_rgbd_slice(card, scene, bank, tmp):
     check(p_launches == r_launches, f"RGB-D: pack launches {p_launches} != raster "
           f"launches {r_launches}")
     orth = _check_rows(results, n_rois, tmp, "rgbd")
-    log(f"[5/11] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
+    log(f"[5/13] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
         f"{bank.faces.shape[0]} meshes x {bank.faces.shape[1]} faces) in {nb} batches of "
         f"{BATCH} + warm-up, post_mode=depth_refine x{iters}: {forwards[0]} forwards, "
         f"layer_norm launches {ln_launches} = 80 x {forwards[0]}, raster launches "
         f"{r_launches} = {iters} x {nb + 1} (and as many pack launches); rows finite, max|R^T R - I| = {orth:.2e}; "
         f"CSV {len(results)} rows")
-    log(f"[5/11] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
+    log(f"[5/13] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
         f"after synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -1155,7 +1184,7 @@ def phase_rgbd_slice(card, scene, bank, tmp):
                     scales, bv, bf, rb["roi_extents"])
         refine_ms = cuda_ms(lambda: depth_refine_batch(*ref_args, iters=iters,
                                                        out_res=pc.output_res), iters=10)
-    log(f"[5/11] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[5/13] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s; depth refine x{iters}: {refine_ms:.3f} ms "
         f"per batch  [{card}]")
     rows2 = {k: v[:2] for k, v in rb.items()}
@@ -1183,7 +1212,7 @@ def phase_refine(card, scene, bank):
           f"depth refine left a z error of {worst_z} m from a {REFINE_OFFSET_M} m offset")
     dt = float((t_k - t_p).abs().max())
     check(dt <= REFINE_T_TOL, f"refined t, B2 vs plain rasterizer: {dt} m")
-    log(f"[6/11] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
+    log(f"[6/13] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
         f"in z, 2 iterations: z error max {worst_z * 1e3:.3f} mm, mean "
         f"{float(z_err.mean()) * 1e3:.3f} mm (limit {0.3 * REFINE_OFFSET_M * 1e3:.1f} mm); "
         f"B2 vs plain rasterizer max |dt| = {dt:.3g} m  [{card}]")
@@ -1238,7 +1267,7 @@ def phase_pnp(card, scene, bank, serve, tmp):
         check(r_err.max() < PNP_R_TOL_DEG and t_err.max() < PNP_T_TOL_M,
               f"{name} from perfect dense outputs: R error {r_err.max()} deg, t error "
               f"{t_err.max()} m")
-        log(f"[7/11] {name} recovers {n} known poses from B2-rendered XYZ / mask / 2D coords "
+        log(f"[7/13] {name} recovers {n} known poses from B2-rendered XYZ / mask / 2D coords "
             f"at {res}x{res}: R error max {r_err.max():.4f} deg, t error max "
             f"{t_err.max() * 1e3:.3f} mm (limits {PNP_R_TOL_DEG} deg, "
             f"{PNP_T_TOL_M * 1e3:.0f} mm); {ms:.3f} ms per batch of {n}  [{card}]")
@@ -1275,7 +1304,7 @@ def phase_pnp(card, scene, bank, serve, tmp):
             post_ms = cuda_ms(post[mode], iters=5, warmup=1)
         times[mode] = {"post_ms": post_ms, "p50_ms": stats["p50_ms"],
                        "rois_per_sec": stats["rois_per_sec"], "launches": launches}
-        log(f"[7/11] RGB post_mode={mode}: served {n_rois} ROIs in {nb} batches of {BATCH} + "
+        log(f"[7/13] RGB post_mode={mode}: served {n_rois} ROIs in {nb} batches of {BATCH} + "
             f"warm-up, layer_norm launches {launches} = 40 x {forwards[0]}; rows finite, "
             f"max|R^T R - I| = {orth:.2e}; {stats['rois_per_sec']:.1f} ROI/s, p50 "
             f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch; the PnP step "
@@ -1354,7 +1383,7 @@ def phase_score(card, scene, bank, tmp):
     check(all(s_gt[k] == 1.0 for k in ar_keys),
           f"GT poses as estimates: {({k: s_gt[k] for k in ar_keys})}")
     sec = ", ".join(f"{k} {v:.3f} s" for k, v in stats["seconds"].items())
-    log(f"[8/11] scoring GT poses as estimates ({len(gts)} GT, {n_vis} at visib >= 0.1, "
+    log(f"[8/13] scoring GT poses as estimates ({len(gts)} GT, {n_vis} at visib >= 0.1, "
         f"{stats['n_targets']} targets, {stats['n_pairs']} pairs) on the card, "
         f"vsd_mode=full: AR = AR_vsd = AR_mssd = AR_mspd = 1.0; VSD pairs per render "
         f"{stats['vsd_pairs']}; {launches} B2 calls; {sec}; "
@@ -1382,7 +1411,7 @@ def phase_score(card, scene, bank, tmp):
               f"ladder {name}: card vs CPU gap {gap} on image {cpu_im}")
         ladder.append({"rung": name, **{k: s_b2[k] for k in ar_keys},
                        "seconds": st["seconds"]["total"]})
-        log(f"[8/11] ladder {name}: " + " ".join(f"{k}={s_b2[k]:.4f}" for k in ar_keys)
+        log(f"[8/13] ladder {name}: " + " ".join(f"{k}={s_b2[k]:.4f}" for k in ar_keys)
             + f" (B2 == plain rasterizer on the card, every key; image {cpu_im}'s "
             f"{len(sub)} GT on the card vs the CPU: max gap {gap:.2e}); "
             f"{st['seconds']['total']:.3f} s, {st['targets_per_s']:.1f} targets/s; with the "
@@ -1421,7 +1450,7 @@ def phase_score(card, scene, bank, tmp):
             n_fit += len(m)
             n_eq += int((diff == 0).sum())
             worst = max(worst, float((diff / share).max()))
-    log(f"[8/11] bbox VSD vs full-image VSD on the card, {n_fit} pairs whose plan fits a "
+    log(f"[8/13] bbox VSD vs full-image VSD on the card, {n_fit} pairs whose plan fits a "
         f"bucket (of {len(gts)}; ladder rung {LADDER[-1][0]}): {n_eq} equal, the rest within "
         f"one pixel's share of their union (worst {worst:.2f} of it): the window's principal "
         f"point, shifted by the integer origin, rounds u by <= 1 ulp  [{card}]")
@@ -1437,7 +1466,7 @@ def phase_score(card, scene, bank, tmp):
     check(all(k in cli and np.isfinite(cli[k]) and 0.0 <= cli[k] <= 1.0 for k in ar_keys)
           and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in cli.values()),
           f"score_csv CLI scores {cli}")
-    log(f"[8/11] python -m gdrnpp_bop2022_torch.tools.score_csv on the served RGB-D CSV: "
+    log(f"[8/13] python -m gdrnpp_bop2022_torch.tools.score_csv on the served RGB-D CSV: "
         + " ".join(f"{k}={cli[k]:.4f}" for k in ar_keys)
         + f", {len(cli)} keys all finite in [0, 1]; {time.perf_counter() - t0:.1f} s "
         f"with the process start  [{card}]")
@@ -1516,13 +1545,13 @@ def ln_backward_times(card):
             t[key] += n * v
         n_bytes += n * (3 * x.numel() * 2 + 2 * rows * 4 + 3 * C * 4)
         fwd_bytes += n * (2 * x.numel() * 2 + 2 * rows * 4 + 2 * C * 4)
-        log(f"[10/11] B1 backward rows={rows} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms "
+        log(f"[10/13] B1 backward rows={rows} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms "
             f"cold {kc:.4f} ms, plain {p:.4f} ms, native_layer_norm_backward hot {lib:.4f} "
             f"ms, copy_ of the same bytes cold {cp:.4f} ms; forward with statistics cold "
             f"{fs:.4f} ms")
     t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
     t["fwd_stats_bound_ms"] = fwd_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[10/11] B1 backward per training step at batch {TRAIN_BATCH} (40 LayerNorms, "
+    log(f"[10/13] B1 backward per training step at batch {TRAIN_BATCH} (40 LayerNorms, "
         f"bf16): kernel hot {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms "
         f"({100 * t['bound_ms'] / t['cold_ms']:.1f}% of the bound cold); plain "
         f"{t['plain_ms']:.4f} ms; native_layer_norm_backward hot {t['library_ms']:.4f} ms; "
@@ -1547,7 +1576,7 @@ def phase_ln_backward(card):
         x = torch.empty(rows * C + off, dtype=dt, device="cuda")[off:].view(rows, C)
         vec = _vector_path(x, x, torch.empty(C, device="cuda"))
         worst = max(worst, err)
-        log(f"[10/11] B1 backward rows={rows} C={C} {str(dt)[6:]} offset={off} "
+        log(f"[10/13] B1 backward rows={rows} C={C} {str(dt)[6:]} offset={off} "
             f"{'vector' if vec else 'scalar'} path: dx max_abs_err={err:.3g}, dweight/dbias "
             f"max err / sum|terms| = {rel:.3g}")
         check(ok, f"B1 backward disagrees with its plain version at rows={rows} C={C} {dt} "
@@ -1673,7 +1702,7 @@ def _aug_check(card, cfg, records, meta, bg_paths):
     check(bg_exact and err <= AUG_TOL and 0 < float(gate.sum()) < TRAIN_BATCH,
           f"augmentation card vs CPU: background exact {bg_exact}, colour max err {err}")
     ms = cuda_ms(lambda: augment(), iters=5, warmup=1)
-    log(f"[10/11] background replacement (p {inp.change_bg_prob}, {len(bg_paths)} images) and "
+    log(f"[10/13] background replacement (p {inp.change_bg_prob}, {len(bg_paths)} images) and "
         f"{aug_type} colour augmentation (p {inp.color_aug.prob}) of a training batch "
         f"({TRAIN_BATCH} x 480x640) on the card vs their plain versions on the CPU, same "
         f"draws, first {n} images: background bit for bit ({int(gate.sum())} of "
@@ -1701,7 +1730,7 @@ def _train_b2(card, records, bank, meta):
            dev("gt_rots"), dev("gt_transes"),
            centered_crop_K(dev("Ks"), dev("centers"), dev("scales"), 64), 64, 64)
     F = inp[1].shape[1]
-    err = _raster_case(f"training batch B={TRAIN_BATCH} 64x64 F={F}", *inp, tag="[10/11]")
+    err = _raster_case(f"training batch B={TRAIN_BATCH} 64x64 F={F}", *inp, tag="[10/13]")
     call = lambda: render_depth_xyz_cuda(*inp)                      # noqa: E731
     bd = raster_bound(*inp)
     # hot by the profiler: events around back-to-back calls of ~40 us time
@@ -1710,7 +1739,7 @@ def _train_b2(card, records, bank, meta):
          "plain_ms": cuda_ms(lambda: render_depth_xyz_batch(*inp, max_block=PLAIN_MAX_BLOCK),
                              iters=3, warmup=1),
          "bound_ms": bd["bound_ms"], "max_abs_err": err, "faces": F}
-    log(f"[10/11] B2 attribute mode at the training batch ({TRAIN_BATCH} ROIs x 64^2 x {F} "
+    log(f"[10/13] B2 attribute mode at the training batch ({TRAIN_BATCH} ROIs x 64^2 x {F} "
         f"faces, decimated): hot {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({bd['pairs']:.4e} pixel-face "
         f"pairs in the boxes, {bd['bound_by']}); faces per tile mean "
@@ -1718,7 +1747,7 @@ def _train_b2(card, records, bank, meta):
     return t
 
 
-def _train_parity(card, records, bank, meta, over=None, tag="[10/11]"):
+def _train_parity(card, records, bank, meta, over=None, tag="[10/13]"):
     """One fp32 step of the tiny config (with ``over``: the dual stream) on
     the card and on the CPU from the same weights and batch (built once on
     the CPU): losses, grads and the params after the step."""
@@ -1795,7 +1824,7 @@ def _train_parity(card, records, bank, meta, over=None, tag="[10/11]"):
         f"{par_err:.2e} (limit {par_tol})")
 
 
-def _train_profile(card, cfg, state, records, bank, meta, bg_paths, tag="[10/11]"):
+def _train_profile(card, cfg, state, records, bank, meta, bg_paths, tag="[10/13]"):
     """Where a training step's device time goes: torch.profiler over
     TRAIN_PROFILE_STEPS steps (host prep of one loader batch included, with
     its augmentations, the loader's wait not): kernel time by name, and the
@@ -2043,7 +2072,7 @@ def phase_train(card, scene, tmp):
     records = records_for(cfg, meta, cfg.datasets.train)
     check(bank.faces.shape[1] <= pc.gt_max_faces and len(records) >= TRAIN_BATCH,
           f"bank faces {bank.faces.shape}, {len(records)} records")
-    log(f"[10/11] train split: {TRAIN_IMAGES} 480x640 images x {DETS_PER_IMAGE} ellipsoids, "
+    log(f"[10/13] train split: {TRAIN_IMAGES} 480x640 images x {DETS_PER_IMAGE} ellipsoids, "
         f"analytic depth, mask/ and mask_visib/ PNGs from the analytic hits, {len(records)} "
         f"records at visib >= {cfg.datasets.filter_visib_thr}; {len(bg_paths)} 640x480 "
         f"backgrounds; bank decimated from 4096 to {bank.faces.shape[1]} faces "
@@ -2053,7 +2082,7 @@ def phase_train(card, scene, tmp):
     aug = _aug_check(card, cfg, records, meta, bg_paths)
     ctx = {"meta": meta, "records": records, "bank": bank, "bg_paths": bg_paths,
            "common": common, "tmp": tmp}
-    run = _train_recipe(card, cfg, ctx, TRAIN_STEPS, TRAIN_LOSS_DROP, "[10/11]",
+    run = _train_recipe(card, cfg, ctx, TRAIN_STEPS, TRAIN_LOSS_DROP, "[10/13]",
                         LN_PER_FORWARD)
     with no_tf32():
         _train_parity(card, records, bank, meta)
@@ -2083,14 +2112,14 @@ def phase_train_rgbd(card, ctx):
         err, rel, ok = _ln_bwd_case(TRAIN_BATCH * r, C, torch.bfloat16, g)
         check(ok, f"B1 backward at ({TRAIN_BATCH * r}, {C}) bf16: dx err {err}, rel {rel}")
         worst = max(worst, err)
-    log(f"[11/11] B1 backward vs plain at the dual stream's shapes (both backbones: "
+    log(f"[11/13] B1 backward vs plain at the dual stream's shapes (both backbones: "
         f"{', '.join(f'({TRAIN_BATCH * r}, {C})' for r, C, _ in LN_SHAPES)}, bf16): dx max "
         f"abs err {worst:.3e}, within one bf16 ulp + 1e-5; dweight / dbias within "
         f"{LN_BWD_REL_TOL} of the sum of their terms")
-    run = _train_recipe(card, cfg, ctx, TRAIN_RGBD_STEPS, TRAIN_RGBD_LOSS_DROP, "[11/11]",
+    run = _train_recipe(card, cfg, ctx, TRAIN_RGBD_STEPS, TRAIN_RGBD_LOSS_DROP, "[11/13]",
                         2 * LN_PER_FORWARD)
     with no_tf32():
-        _train_parity(card, ctx["records"], ctx["bank"], ctx["meta"], over=DSTREAM, tag="[11/11]")
+        _train_parity(card, ctx["records"], ctx["bank"], ctx["meta"], over=DSTREAM, tag="[11/13]")
     return dict(run, ln_bwd_err=worst)
 
 
@@ -2127,7 +2156,7 @@ def phase_pool(card, ctx):
     finally:
         host.close()
         pooled.close()
-    log(f"[10/11] pool mode: {POOL_BATCHES} training batches from frames kept on the card "
+    log(f"[10/13] pool mode: {POOL_BATCHES} training batches from frames kept on the card "
         f"({pools.nbytes / 1e9:.2f} GB: {POOL_FRAMES} RGB, {2 * POOL_FRAMES} mask, "
         f"{cfg.train.device_pool_bg_frames} background slots; uploads on a side stream) equal "
         f"the host batches of the same seed and draws bit for bit (augmented crops, masks, "
@@ -2138,7 +2167,7 @@ def phase_pool(card, ctx):
     torch.cuda.synchronize()
     check(state.step == POOL_STEPS, "pool-mode training did not run")
     steps_ms = stats["step"][1:]
-    log(f"[10/11] pool-mode training (train.device_pool_frames={POOL_FRAMES}) for "
+    log(f"[10/13] pool-mode training (train.device_pool_frames={POOL_FRAMES}) for "
         f"{POOL_STEPS} steps: step mean {float(np.mean(steps_ms)):.2f} ms (steps 2.."
         f"{POOL_STEPS - 1}), H2D + pool gathers {float(np.mean(stats['h2d'][1:])):.2f} ms, host "
         f"wait {float(np.mean(stats['host_wait'][1:])):.2f} ms; pools {stats['pool']}  "
@@ -2146,6 +2175,319 @@ def phase_pool(card, ctx):
     del state
     torch.cuda.empty_cache()
     return {"stats": stats["pool"], "step_ms": float(np.mean(steps_ms))}
+
+
+# ---------------------------------------------------------------------------
+# the detector (phase 12) and the two-stage path (phase 13)
+# ---------------------------------------------------------------------------
+
+def _numpy_greedy(boxes, score, cls, nms_thr, max_dets):
+    """An independent greedy NMS in numpy over one image's decoded boxes
+    (A, 4 xyxy), scores (A,) and classes (A,): the top k = min(4 max_dets, A)
+    by score, then kept in score order unless a kept box of the same class
+    overlaps it above nms_thr. Returns the kept indices, at most max_dets."""
+    order = np.argsort(-score, kind="stable")[:min(4 * max_dets, len(score))]
+    kept = []
+    for j in order:
+        if score[j] <= 0:
+            break
+        if kept:
+            kb = boxes[kept]
+            tl = np.maximum(kb[:, :2], boxes[j, :2])
+            br = np.minimum(kb[:, 2:], boxes[j, 2:])
+            inter = np.prod(np.maximum(br - tl, np.float32(0)), -1)
+            area = lambda b: np.prod(np.maximum(b[..., 2:] - b[..., :2], np.float32(0)), -1)  # noqa: E731
+            iou = inter / np.maximum(area(kb) + area(boxes[j]) - inter, np.float32(1e-9))
+            if ((iou > nms_thr) & (cls[kept] == cls[j])).any():
+                continue
+        kept.append(j)
+    return kept[:max_dets]
+
+
+def _check_nms_numpy(flat, grids, st, conf_thr, nms_thr, tag):
+    """The card's postprocess_nms against _numpy_greedy on the same raw rows:
+    the decode and scores within fp32 rounding of numpy's own, then, on the
+    card's decoded values, the same kept rows bit for bit."""
+    from gdrnpp_bop2022_torch.models.yolox.head import cxcywh_to_xyxy, decode_outputs
+    from gdrnpp_bop2022_torch.models.yolox.yolox import postprocess_nms
+    with torch.inference_mode():
+        out = {k: v.cpu().numpy() for k, v in
+               postprocess_nms(flat, grids, st, conf_thr=conf_thr, nms_thr=nms_thr).items()}
+        boxes, obj, cls_l = decode_outputs(flat, grids, st)
+        sc_all = torch.sigmoid(obj)[..., None] * torch.sigmoid(cls_l)
+        conf, cid = sc_all.amax(-1), sc_all.argmax(-1)
+        score = torch.where(conf > conf_thr, conf, torch.zeros_like(conf))
+        xyxy = cxcywh_to_xyxy(boxes)
+    f, g, s = (t.cpu().numpy() for t in (flat, grids, st))
+    sig = lambda z: 1.0 / (1.0 + np.exp(-z.astype(np.float64)))      # noqa: E731
+    np_conf = (sig(f[..., 4])[..., None] * sig(f[..., 5:])).max(-1)
+    np_xy = (f[..., 0:2] + g[None]) * s[None, :, None]
+    dec_err = float(np.abs(np_conf - conf.cpu().numpy()).max())
+    xy_err = float(np.abs(np_xy - boxes[..., :2].cpu().numpy()).max())
+    check(dec_err < 1e-5 and xy_err < 1e-3, f"{tag}: decode vs numpy {dec_err}, {xy_err}")
+    xyxy, score, cid = xyxy.cpu().numpy(), score.cpu().numpy(), cid.cpu().numpy()
+
+    def table(boxes, scores, labels):
+        """Rows sorted by score, then box and label: torch.topk and numpy
+        order candidates of exactly equal score differently."""
+        t = np.concatenate([-scores[:, None], boxes, labels[:, None].astype(np.float32)], 1)
+        return t[np.lexsort(t.T[::-1])]
+
+    n_kept = []
+    for b in range(flat.shape[0]):
+        kept = _numpy_greedy(xyxy[b], score[b], cid[b], nms_thr, 100)
+        v = out["valid"][b]
+        n = int(v.sum())
+        check(n == len(kept) and v[:n].all() and np.array_equal(
+            table(out["boxes_xyxy"][b][:n], out["scores"][b][:n], out["labels"][b][:n]),
+            table(xyxy[b][kept], score[b][kept], cid[b][kept])),
+            f"{tag}: image {b}: the card's NMS != the numpy greedy NMS")
+        n_kept.append(n)
+    return n_kept, dec_err
+
+
+def _launches(fn):
+    """Kernels and copies one call of fn() puts on the card (profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def phase_detector(card, scene):
+    """yolox-x at 640x640 (21 classes, bf16), GN and BN (BN with drawn
+    running statistics), weights from the seed, at batch 8 on the RGB-D
+    scene's 24 images: plain and TTA detection times, the NMS's share,
+    launches, peak memory; the NMS against numpy; the card against the CPU
+    in fp32; GT boxes scored as detections."""
+    from gdrnpp_bop2022_torch.configs import yolox as yolox_recipe
+    from gdrnpp_bop2022_torch.datasets.bop_data import index_bop_split, load_image
+    from gdrnpp_bop2022_torch.datasets.yolox_loader import letterbox
+    from gdrnpp_bop2022_torch.eval.detection_eval import coco_map
+    from gdrnpp_bop2022_torch.models.yolox import build_yolox
+    from gdrnpp_bop2022_torch.models.yolox.head import flatten_outputs
+    from gdrnpp_bop2022_torch.models.yolox.yolox import (make_inference, make_tta_inference,
+                                                         postprocess_nms, tta_rows)
+    from gdrnpp_bop2022_torch.utils.weights import seeded_state_dict
+
+    rc = yolox_recipe("ycbv")
+    check(rc.size == "yolox_x" and rc.input_size == 640 and rc.test.tta
+          and rc.test.tta_scales == (1.0, 0.75, 0.83, 1.12, 1.25) and rc.test.conf_thr_tta == 0.001
+          and rc.test.nms_thr == 0.65, "configs.yolox('ycbv') is not the BOP'22 recipe")
+    meta = scene["meta"]
+    by_im = {}
+    for r in index_bop_split(scene["split_dir"], meta):
+        by_im.setdefault(r.scene_im_id, []).append(r)
+    keys = sorted(by_im, key=lambda k: int(k.split("/")[1]))
+    canv = [letterbox(load_image(by_im[k][0].rgb_path), rc.input_size) for k in keys]
+    batches = [torch.from_numpy(np.stack([c for c, _ in canv[i:i + DET_BATCH]])).cuda().float()
+               for i in range(0, len(keys), DET_BATCH)]
+    x = batches[0]
+    gts = {k: [{"bbox_xyxy": r.bbox_visib, "label": r.label} for r in by_im[k]] for k in keys}
+    m_gt = coco_map({k: [dict(g, score=1.0) for g in v] for k, v in gts.items()}, gts,
+                    meta.num_classes)
+    check(abs(m_gt["mAP"] - 100 / 101) < 1e-9 and abs(m_gt["AP50"] - 100 / 101) < 1e-9,
+          f"GT boxes as detections: {m_gt}")
+    log(f"[12/13] {len(keys)} images letterboxed to {rc.input_size}^2 in batches of "
+        f"{DET_BATCH}; GT boxes as detections: mAP = AP50 = {m_gt['mAP']:.6f} (100/101, the "
+        f"top of coco_map's 101-point interpolation)")
+    res, models = {}, {}
+    for norm in ("GN", "BN"):
+        model = build_yolox(meta.num_classes, rc.size, norm=norm)
+        check(next(model.parameters()).is_cuda, "build_yolox did not build on the card")
+        model.load_state_dict(seeded_state_dict(model, SEED), strict=True)
+        n_par = sum(p.numel() for p in model.parameters())
+        plain = make_inference(model, conf_thr=DET_CONF_PLAIN, nms_thr=rc.test.nms_thr)
+        tta = make_tta_inference(model, scales=rc.test.tta_scales, flip=True,
+                                 conf_thr=rc.test.conf_thr_tta, nms_thr=rc.test.nms_thr)
+        with torch.inference_mode():
+            flat, grids, st = flatten_outputs(model(x), model.strides)
+            rows = tta_rows(model, x, rc.test.tta_scales, True)
+        A = rows.shape[1]
+        zeros, ones = (torch.zeros(A, 2, device="cuda"), torch.ones(A, device="cuda"))
+        n_plain, err_plain = _check_nms_numpy(flat, grids, st, DET_CONF_PLAIN, rc.test.nms_thr,
+                                              f"{norm} plain NMS")
+        n_tta, err_tta = _check_nms_numpy(rows, zeros, ones, rc.test.conf_thr_tta,
+                                          rc.test.nms_thr, f"{norm} TTA NMS")
+        with torch.inference_mode():
+            t = {"forward_ms": cuda_ms(lambda: model(x), iters=DET_REPS),
+                 "plain_ms": cuda_ms(lambda: plain(x), iters=DET_REPS),
+                 "nms_plain_ms": cuda_ms(lambda: postprocess_nms(
+                     flat, grids, st, DET_CONF_PLAIN, rc.test.nms_thr), iters=DET_REPS)}
+            torch.cuda.reset_peak_memory_stats()
+            t["tta_ms"] = cuda_ms(lambda: tta(x), iters=3, warmup=1)
+            t["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            t["nms_tta_ms"] = cuda_ms(lambda: postprocess_nms(
+                rows, zeros, ones, rc.test.conf_thr_tta, rc.test.nms_thr), iters=DET_REPS)
+            outs = [{k: v.cpu().numpy() for k, v in tta(b).items()} for b in batches]
+        t.update(plain_img_s=DET_BATCH / t["plain_ms"] * 1e3,
+                 tta_img_s=DET_BATCH / t["tta_ms"] * 1e3,
+                 nms_share_plain=t["nms_plain_ms"] / t["plain_ms"],
+                 nms_share_tta=t["nms_tta_ms"] / t["tta_ms"], anchors_tta=A, params=n_par,
+                 kept_plain=n_plain, kept_tta=n_tta, decode_err=max(err_plain, err_tta))
+        dets = {}
+        for bi, o in enumerate(outs):
+            for j, k in enumerate(keys[bi * DET_BATCH:(bi + 1) * DET_BATCH]):
+                keep = o["valid"][j] & (o["scores"][j] > 0)
+                check(np.isfinite(o["boxes_xyxy"][j][keep]).all(), f"{norm}: non-finite boxes")
+                dets[k] = [{"bbox_xyxy": b / canv[bi * DET_BATCH + j][1], "label": int(lab),
+                            "score": float(s)} for b, lab, s in
+                           zip(o["boxes_xyxy"][j][keep], o["labels"][j][keep],
+                               o["scores"][j][keep])]
+        t["map_random"] = coco_map(dets, gts, meta.num_classes)["mAP"]
+        res[norm] = t
+        models[norm] = (plain, tta)
+    # launches last, after the times: one profiled call of each path
+    for norm, (plain, tta) in models.items():
+        t = res[norm]
+        with torch.inference_mode():
+            t["launches_plain"] = _launches(lambda: plain(x))
+            t["launches_tta"] = _launches(lambda: tta(x))
+        log(f"[12/13] yolox-x {norm} ({t['params'] / 1e6:.2f} M params, bf16, batch {DET_BATCH} at "
+            f"640^2): forward {t['forward_ms']:.2f} ms; plain detection (forward + decode + "
+            f"NMS, conf {DET_CONF_PLAIN}) {t['plain_ms']:.2f} ms = {t['plain_img_s']:.1f} "
+            f"images/s, NMS {t['nms_plain_ms']:.3f} ms ({100 * t['nms_share_plain']:.1f}%), "
+            f"{t['launches_plain']} kernels and copies a batch; TTA (5 scales x flip, "
+            f"{t['anchors_tta']} anchors an image, conf {rc.test.conf_thr_tta}) "
+            f"{t['tta_ms']:.2f} ms = "
+            f"{t['tta_img_s']:.1f} images/s, NMS {t['nms_tta_ms']:.3f} ms "
+            f"({100 * t['nms_share_tta']:.2f}%), {t['launches_tta']} kernels and copies a "
+            f"batch, peak {t['peak_gb']:.2f} GB (CUDA events)  [{card}]")
+        log(f"[12/13] {norm}: the card's NMS == a numpy greedy NMS on the same raw rows, every "
+            f"image (kept {t['kept_plain']} plain, {t['kept_tta']} under TTA; scores vs "
+            f"numpy's decode {t['decode_err']:.1e}); random weights score mAP "
+            f"{t['map_random']:.4f} on the scene's GT boxes")
+    del models, plain, tta, model, flat, rows
+    torch.cuda.empty_cache()
+
+    # card vs CPU in fp32 on 2 of the images, TF32 off
+    errs = {}
+    with no_tf32(), torch.inference_mode():
+        for norm in ("GN", "BN"):
+            outs = {}
+            for dev in ("cuda", "cpu"):
+                m = build_yolox(meta.num_classes, rc.size, norm=norm, device=dev,
+                                dtype=torch.float32)
+                m.load_state_dict(seeded_state_dict(m, SEED), strict=True)
+                outs[dev] = [o.cpu() for o in m(x[:2].to(dev))]
+                del m
+            errs[norm] = max(float((a - b).abs().max() / b.abs().max())
+                             for a, b in zip(outs["cuda"], outs["cpu"]))
+            check(errs[norm] <= DET_PARITY_TOL and all(torch.isfinite(o).all()
+                                                       for o in outs["cuda"]),
+                  f"yolox-x {norm} fp32 card vs CPU: {errs[norm]} > {DET_PARITY_TOL}")
+    log(f"[12/13] yolox-x fp32 card vs CPU on 2 images, TF32 off: raw outputs within "
+        f"GN {errs['GN']:.2e} / BN {errs['BN']:.2e} of each level's largest magnitude "
+        f"(limit {DET_PARITY_TOL})")
+    torch.cuda.empty_cache()
+    return dict(res, parity=errs)
+
+
+def phase_two_stage(card, scene, tmp):
+    """python -m ...tools.test_yolox (the ycbv recipe: TTA) on the scene ->
+    the handoff json -> test_gdrn with model.load_dets_test=True (B1's
+    launches counted) -> CSV -> python -m ...tools.score_csv; then
+    python -m ...tools.demo_gdrn with the detector inline on DEMO_IMAGES
+    images."""
+    import contextlib
+    import io
+    import re
+    from torch.nn.modules.module import register_module_forward_hook
+    from gdrnpp_bop2022_torch.bop.inout import load_json
+    from gdrnpp_bop2022_torch.models.gdrn import GDRN
+    from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm
+    from gdrnpp_bop2022_torch.tools import test_gdrn
+
+    root = os.path.dirname(os.path.dirname(scene["models_dir"]))    # holds ycbv/
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, "two_stage")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gdrnpp_bop2022_torch.tools.test_yolox",
+                           "--config", "ycbv", "--root", root, "--allow-random-weights",
+                           "--out", out], capture_output=True, text=True,
+                          timeout=600, cwd=here)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"test_yolox CLI failed: {proc.stderr[-2000:]}")
+    det_file = os.path.join(out, "yolox_ycbv_test_bboxes.json")
+    handoff = load_json(det_file)
+    n_rows = sum(len(v) for v in handoff.values())
+    check(len(handoff) == N_IMAGES and all(0 < len(v) <= 100 for v in handoff.values())
+          and all(np.isfinite(r["bbox_est"]).all() and 0 < r["score"] <= 1
+                  for v in handoff.values() for r in v), "test_yolox's handoff json")
+    rate = re.search(r"([0-9.]+) images/s in detection", proc.stdout)
+    log(f"[13/13] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv (yolox-x GN "
+        f"bf16, TTA 5 scales x flip, batch 8, random weights): {N_IMAGES} images, {n_rows} "
+        f"rows in the handoff json; {rate.group(1) if rate else '?'} images/s in detection "
+        f"(host clock after the copy back), {cli_s:.1f} s for the whole CLI with the process "
+        f"start  [{card}]")
+
+    forwards = [0]
+    hook = register_module_forward_hook(
+        lambda m, i, o: forwards.__setitem__(0, forwards[0] + isinstance(m, GDRN)))
+    opts = [f"datasets.root={root!r}", "datasets.test=('ycbv_test',)",
+            "model.load_dets_test=True", f"datasets.det_files_test=({det_file!r},)",
+            f"output_dir={os.path.join(tmp, 'gdrn_two_stage')!r}", "val.save_results_only=True"]
+    layer_norm.launches = 0                       # count this path only
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            results, _ = test_gdrn.main(["--config", "default", "--seed", str(SEED),
+                                         "--opts", *opts])
+    finally:
+        hook.remove()
+    gdrn_s = time.perf_counter() - t0
+    launches = layer_norm.launches
+    check(forwards[0] > 1 and launches == LN_PER_FORWARD * forwards[0],
+          f"two-stage: layer_norm launches {launches} != 40 x {forwards[0]} forwards")
+    served = re.search(r"served (\d+) ROIs in (\d+) batches .*: ([0-9.]+) ROI/s, p50 ([0-9.]+)",
+                       buf.getvalue())
+    check(served is not None and int(served.group(1)) == len(results) > 0,
+          f"test_gdrn's output: {buf.getvalue()[-500:]}")
+    csv = os.path.join(tmp, "gdrn_two_stage", "inference", "ycbv_test", "poses.csv")
+    _check_rows(results, len(results), tmp, "two_stage")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gdrnpp_bop2022_torch.tools.score_csv",
+                           "--csv", csv, "--dataset", "ycbv", "--root", root],
+                          capture_output=True, text=True, timeout=600, cwd=here)
+    check(proc.returncode == 0, f"score_csv on the two-stage CSV failed: {proc.stderr[-2000:]}")
+    scores = json.loads(proc.stdout)
+    ar_keys = ("AR", "AR_vsd", "AR_mssd", "AR_mspd")
+    check(all(np.isfinite(scores[k]) and 0.0 <= scores[k] <= 1.0 for k in ar_keys),
+          f"two-stage scores {scores}")
+    log(f"[13/13] test_gdrn (flagship Config(), bf16) on the handoff json with "
+        f"model.load_dets_test=True (top 1 per object): {served.group(1)} ROIs in "
+        f"{served.group(2)} batches, {served.group(3)} ROI/s, p50 {served.group(4)} ms a batch "
+        f"(host clock after synchronize), {gdrn_s:.1f} s in all; {forwards[0]} forwards, "
+        f"layer_norm launches {launches} = 40 x {forwards[0]}; score_csv on its CSV: "
+        + " ".join(f"{k}={scores[k]:.4f}" for k in ar_keys)
+        + f" ({time.perf_counter() - t0:.1f} s)  [{card}]")
+
+    imgs = sorted(os.path.join(scene["split_dir"], "000048", "rgb", f)
+                  for f in os.listdir(os.path.join(scene["split_dir"], "000048", "rgb")))
+    demo_out = os.path.join(tmp, "demo")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gdrnpp_bop2022_torch.tools.demo_gdrn",
+                           "--config", "default", "--seed", str(SEED), "--images",
+                           *imgs[:DEMO_IMAGES], "--yolox-random-weights", "--out", demo_out,
+                           "--opts", f"datasets.root={root!r}"],
+                          capture_output=True, text=True, timeout=600, cwd=here)
+    demo_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"demo_gdrn failed: {proc.stderr[-2000:]}")
+    drawn = sorted(os.listdir(demo_out))
+    check(drawn == sorted(os.path.basename(p) for p in imgs[:DEMO_IMAGES]),
+          f"demo_gdrn drew {drawn}")
+    n_obj = sum(int(n) for n in re.findall(r"\((\d+) objects\)", proc.stdout))
+    log(f"[13/13] python -m gdrnpp_bop2022_torch.tools.demo_gdrn with yolox-x inline (GN, bf16, "
+        f"conf 0.3) and the flagship GDRN on {DEMO_IMAGES} images: {n_obj} posed objects drawn, "
+        f"{demo_s:.1f} s with the process start  [{card}]")
+    return {"launches": launches, "forwards": forwards[0], "rois": len(results),
+            "roi_per_s": float(served.group(3)), "test_yolox_cli_s": cli_s,
+            "scores": {k: scores[k] for k in ar_keys}}
 
 
 def _parity(cfg, batch, tag):
@@ -2169,7 +2511,7 @@ def _parity(cfg, batch, tag):
         tol = PARITY_ROT_TOL if k == "rot" else PARITY_REL_TOL * scale
         check(torch.isfinite(gpu[k]).all() and d <= tol,
               f"{tag} card vs CPU {k}: max abs diff {d} > {tol}")
-    log(f"[9/11] fp32 {tag}, 2 ROIs, card (B1 kernel) vs CPU (plain), TF32 "
+    log(f"[9/13] fp32 {tag}, 2 ROIs, card (B1 kernel) vs CPU (plain), TF32 "
         "off: max abs diff " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
 
 
@@ -2285,7 +2627,7 @@ def main():
         scene = make_rgbd_scene(os.path.join(tmp, "ycbv"), np.random.RandomState(SEED + 2))
         bank = ModelBank.from_bop_models_dir(scene["models_dir"])
         check(bank.faces.shape == (21, 4096, 3), f"bank faces {bank.faces.shape}")
-        log(f"[3/11] RGB-D scene and model bank written and loaded in "
+        log(f"[3/13] RGB-D scene and model bank written and loaded in "
             f"{time.perf_counter() - t0:.1f} s (analytic depth, no rendering)")
         b2 = phase_raster(card, scene, bank)
         rb, serve = phase_slice(card, os.path.join(tmp, "rgb"))
@@ -2299,13 +2641,17 @@ def main():
         rgbd = phase_train_rgbd(card, train["ctx"])
         del train["ctx"]
         lnb = train["lnb"]
+        torch.cuda.empty_cache()
+        det = phase_detector(card, scene)
+        two = phase_two_stage(card, scene, tmp)
     share = 100.0 * 2 * b2["ms"] / times["p50_ms"]
-    log(f"[5/11] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
+    log(f"[5/13] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
         f"{times['p50_ms']:.2f} ms p50 batch = {share:.2f}%  [{card}]")
     phase_parity(rb, rb_rgbd)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "gdrnpp_bop2022_tpu"))
     check(not bad, f"the port imported {bad[:3]}")
+    log("detector and two-stage: " + json.dumps({"detector": det, "two_stage": two}))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "layer_norm", "route": "cuda",
@@ -2317,7 +2663,8 @@ def main():
          "launches_by_path": {"rgbd_depth_refine": ln_launches,
                               **{f"rgb_{m}": pnp[m]["launches"] for m in PNP_MODES},
                               "train": train["launches"]["fwd"],
-                              "train_rgbd": rgbd["launches"]["fwd"]}},
+                              "train_rgbd": rgbd["launches"]["fwd"],
+                              "two_stage": two["launches"]}},
         {"name": "layer_norm_backward", "route": "cuda",
          "source": "gdrnpp_bop2022_torch/csrc/layer_norm.cu",
          "replaces": "gdrnpp_bop2022_tpu/ops/pallas_ln.py:26 (its VJP)",

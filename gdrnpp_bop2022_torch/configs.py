@@ -10,11 +10,33 @@ the JAX package's config, so the port cannot load them): a dual-stream
 convnext_base over RGB and backprojected depth ROIs with concat fusion,
 depth refinement at evaluation (2 iterations). ``tests/test_torch_config.py``
 holds each equal to its file's ``cfg`` field by field.
+
+``yolox(name)`` is the BOP'22 yolox-x detector recipe ``name``, the port's
+copy of ``configs/yolox/<name>.py`` (yolox-x at 640², TTA at scales 1, .75,
+.83, 1.12, 1.25 with conf 0.001, NMS 0.65; ``YoloxConfig``'s defaults are
+the shared recipe): a dataset's PBR-only recipe, or ``<dataset>_real_pbr``
+with the real train split beside train_pbr.
 """
 
 from __future__ import annotations
 
-from .config import Config, replace_cfg
+from .config import Config, YoloxConfig, replace_cfg
+
+# the detector recipes' datasets, and the real train split of those with a
+# real+PBR recipe (configs/yolox/*_real_pbr.py)
+YOLOX_DATASETS = ("ycbv", "lmo", "tless", "tudl", "icbin", "itodd", "hb")
+_YOLOX_REAL_SPLIT = {"ycbv": "train_real", "tless": "train_primesense", "tudl": "train_real"}
+YOLOX_RECIPES = YOLOX_DATASETS + tuple(f"{d}_real_pbr" for d in _YOLOX_REAL_SPLIT)
+
+
+def yolox(name: str) -> YoloxConfig:
+    if name not in YOLOX_RECIPES:
+        raise ValueError(f"yolox recipe {name!r}: one of {', '.join(YOLOX_RECIPES)}")
+    dataset = name.removesuffix("_real_pbr")
+    cfg = YoloxConfig(dataset=dataset, output_dir=f"output/yolox/{dataset}")
+    if name.endswith("_real_pbr"):
+        cfg = replace_cfg(cfg, {"train_splits": ("train_pbr", _YOLOX_REAL_SPLIT[dataset])})
+    return cfg
 
 
 def ycbv_convnext_base() -> Config:

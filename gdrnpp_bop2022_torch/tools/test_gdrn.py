@@ -32,8 +32,8 @@ def load_config(name: str):
     if name == "default":
         return Config()
     fn = getattr(configs, name, None)
-    if getattr(fn, "__module__", None) != configs.__name__:
-        raise ValueError(f"--config {name!r}: 'default' or a config of "
+    if getattr(fn, "__module__", None) != configs.__name__ or name == "yolox":
+        raise ValueError(f"--config {name!r}: 'default' or a GDRN config of "
                          f"gdrnpp_bop2022_torch/configs.py")
     return fn()
 
@@ -80,6 +80,7 @@ def run_eval(cfg, meta, bank, model, device="cuda", seed: int = 0):
     batches = iter_test_batches(by_im, dets, batch_size=64,
                                 with_depth=post_mode == "depth_refine" or cfg.input.with_depth,
                                 depth_factor=meta.depth_factor)
+    stats = {}
     results = run_gdrn_inference(
         model, batches, bank.extents, input_res=pc.input_res, output_res=pc.output_res,
         pixel_mean=cfg.model.pixel_mean, pixel_std=cfg.model.pixel_std,
@@ -87,7 +88,12 @@ def run_eval(cfg, meta, bank, model, device="cuda", seed: int = 0):
         depth_refine_iters=cfg.val.depth_refine_iters,
         depth_refine_threshold=cfg.val.depth_refine_threshold,
         mask_loss_type=pc.loss.mask_loss_type, with_depth_input=cfg.input.with_depth,
-        bp_depth=cfg.input.bp_depth, coord_2d_type=pc.pnp_net.coord_2d_type, seed=seed)
+        bp_depth=cfg.input.bp_depth, coord_2d_type=pc.pnp_net.coord_2d_type, seed=seed,
+        stats=stats)
+    if stats["n_batches"]:
+        print(f"served {stats['n_instances']} ROIs in {stats['n_batches']} batches of 64 "
+              f"({post_mode}, {stats['device']}): {stats['rois_per_sec']:.1f} ROI/s, p50 "
+              f"{stats['p50_ms']:.2f} ms a batch")
 
     out_dir = os.path.join(cfg.output_dir, "inference", test_name)
     os.makedirs(out_dir, exist_ok=True)

@@ -1,9 +1,11 @@
-"""Channel order of the geo head's shared out conv (numpy only).
+"""Channel orders that differ between the reference's layout and the JAX
+package's (numpy only).
 
-The port's copy of ``gdrnpp_bop2022_tpu/utils/torch_port.py::
-geo_out_channel_perm``: the port keeps the reference's group-major out-conv
-layout, the JAX package a class-major one, and this permutation maps one
-onto the other (the head's weight gather and the weight bridge use it).
+The port's copies of ``gdrnpp_bop2022_tpu/utils/torch_port.py::
+geo_out_channel_perm`` and ``focus_input_perm``: the port keeps the
+reference's layouts (the geo head's group-major out conv, YOLOX's Focus
+order), the JAX package other ones, and these permutations map one onto the
+other (the geo head's weight gather and the weight bridges use them).
 """
 
 from __future__ import annotations
@@ -45,3 +47,22 @@ def geo_out_channel_perm(mask_out_dim: int, xyz_out_dim: int,
         perm += [reg_base + c * region_out_dim + j
                  for j in range(region_out_dim)]
     return np.asarray(perm, np.int64)
+
+
+def focus_input_perm(C: int = 3) -> np.ndarray:
+    """Input-channel permutation of YOLOX's stem conv.
+
+    The port's copy of ``gdrnpp_bop2022_tpu/utils/torch_port.py::
+    focus_input_perm``. The reference's Focus (and the port's) concatenates
+    the pixel-unshuffle blocks as [top-left, bottom-left, top-right,
+    bottom-right], channel g * C + c; the JAX package's ``focus_rearrange``
+    flattens (dy, dx, c) row-major. Returns perm with
+    jax_channel[i] = ref_channel[perm[i]].
+    """
+    g_of = {(0, 0): 0, (1, 0): 1, (0, 1): 2, (1, 1): 3}
+    perm = np.empty(4 * C, np.int64)
+    for dy in range(2):
+        for dx in range(2):
+            for c in range(C):
+                perm[dy * 2 * C + dx * C + c] = g_of[(dy, dx)] * C + c
+    return perm

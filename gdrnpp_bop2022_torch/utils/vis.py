@@ -1,12 +1,63 @@
-"""Image tiling for the trainer's batch dumps.
+"""Drawing on the host: the trainer's batch tiles and the demos' boxes.
 
-The port's copy of ``grid_show`` from ``gdrnpp_bop2022_tpu/utils/vis.py``
-(reference lib/vis_utils grid_show; written to a file, not a window).
+The port's copy of ``gdrnpp_bop2022_tpu/utils/vis.py``'s ``grid_show``
+(reference lib/vis_utils grid_show; written to a file, not a window),
+``bbox3d_corners``, ``project_pts`` and ``draw_pose_bbox`` (the GDRN demo's
+projected 3D boxes), and ``draw_detections``, the detector demo's 2D boxes
+(``tools/demo_yolox.py``'s drawing).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+_BOX_EDGES = [(0, 1), (1, 2), (2, 3), (3, 0), (4, 5), (5, 6), (6, 7), (7, 4),
+              (0, 4), (1, 5), (2, 6), (3, 7)]
+
+
+def bbox3d_corners(extent: np.ndarray, center: np.ndarray | None = None) -> np.ndarray:
+    """8 corners (8, 3) of an axis-aligned box with the given extent."""
+    ex, ey, ez = np.asarray(extent) * 0.5
+    corners = np.array([
+        [-ex, -ey, -ez], [ex, -ey, -ez], [ex, ey, -ez], [-ex, ey, -ez],
+        [-ex, -ey, ez], [ex, -ey, ez], [ex, ey, ez], [-ex, ey, ez],
+    ])
+    return corners if center is None else corners + np.asarray(center)
+
+
+def project_pts(pts: np.ndarray, K: np.ndarray, R: np.ndarray, t: np.ndarray):
+    pc = pts @ R.T + t.reshape(1, 3)
+    uvw = pc @ K.T
+    return uvw[:, :2] / np.maximum(uvw[:, 2:], 1e-12)
+
+
+def draw_pose_bbox(img: np.ndarray, K: np.ndarray, R: np.ndarray, t: np.ndarray,
+                   extent: np.ndarray, color=(0, 255, 0), thickness=2,
+                   center: np.ndarray | None = None) -> np.ndarray:
+    """A copy of img with the projected 3D bounding box of a posed object."""
+    import cv2
+    out = img.copy()
+    uv = project_pts(bbox3d_corners(extent, center), K, R, t)
+    # near-zero depths from random weights project far away: clip into
+    # what cv2's int coordinates hold
+    uv = np.clip(np.nan_to_num(uv), -10_000, 10_000).astype(np.int32)
+    for a, b in _BOX_EDGES:
+        cv2.line(out, (int(uv[a, 0]), int(uv[a, 1])), (int(uv[b, 0]), int(uv[b, 1])),
+                 color, thickness)
+    return out
+
+
+def draw_detections(img: np.ndarray, boxes, names, scores,
+                    color=(0, 255, 0)) -> np.ndarray:
+    """A copy of img with each xyxy box and its "name score" caption."""
+    import cv2
+    out = np.ascontiguousarray(img).copy()
+    for b, name, sc in zip(boxes, names, scores):
+        x1, y1, x2, y2 = (int(v) for v in np.clip(np.nan_to_num(b), -10_000, 10_000))
+        cv2.rectangle(out, (x1, y1), (x2, y2), color, 2)
+        cv2.putText(out, f"{name} {float(sc):.2f}", (x1, y1 - 4),
+                    cv2.FONT_HERSHEY_SIMPLEX, 0.5, color, 1)
+    return out
 
 
 def grid_show(images, titles=None, out_path=None, cols=4):

@@ -4,6 +4,8 @@
 arrays) into the port's state dict. It is the inverse of
 ``gdrnpp_bop2022_tpu/utils/torch_port.py::convert_gdrn_checkpoint``, so
 both packages can be made to compute the same function.
+``yolox_state_dict_from_flax`` does the same for YOLOX (GN or BN); for BN it
+is the inverse of ``convert_yolox_checkpoint``.
 
 ``seeded_state_dict`` draws a full state dict from a numpy seed, at a scale
 where every layer matters (layer scale and out-conv inits of 1e-6..1e-2
@@ -12,6 +14,7 @@ would make most of the network a no-op).
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -20,7 +23,7 @@ import torch
 from ..config import Config
 from ..models.gdrn import xyz_mask_region_out_dims
 from ..models.heads.conv_pnp_net import final_spatial
-from .channel_perm import geo_out_channel_perm
+from .channel_perm import focus_input_perm, geo_out_channel_perm
 
 _CONVNEXT_DEPTHS = {"convnext_tiny": (3, 3, 9, 3),
                     "convnext_small": (3, 3, 27, 3),
@@ -143,15 +146,91 @@ def state_dict_from_flax(params: dict, cfg: Config) -> Dict[str, torch.Tensor]:
     return out
 
 
+# YOLOX: the JAX package's module names -> the reference's (torch_port.py's
+# convert_yolox_checkpoint name map, inverted)
+_YOLOX_PAFPN = {"lateral5": "lateral_conv0", "fpn_c4": "C3_p4", "lateral4": "reduce_conv1",
+                "fpn_c3": "C3_p3", "down3": "bu_conv2", "pan_c4": "C3_n3",
+                "down4": "bu_conv1", "pan_c5": "C3_n4"}
+_YOLOX_DARK = {"stem": "stem.conv", "dark5_spp": "dark5.1", "dark5_csp": "dark5.2",
+               **{f"dark{n}_conv": f"dark{n}.0" for n in range(2, 6)},
+               **{f"dark{n}_csp": f"dark{n}.1" for n in range(2, 5)}}
+
+
+def _yolox_head_name(name: str) -> str:
+    m = re.fullmatch(r"(stem|cls_pred|reg_pred|obj_pred)(\d+)", name)
+    if m:
+        return f"{m[1]}s.{m[2]}"
+    m = re.fullmatch(r"(cls|reg)(\d+)_(\d+)", name)
+    if m:
+        return f"{m[1]}_convs.{m[2]}.{m[3]}"
+    raise KeyError(f"unknown YOLOX head module {name!r}")
+
+
+def _yolox_node(p, s, prefix, out):
+    """One flax subtree -> reference-named entries: a conv + norm node
+    (BaseConv), a plain conv (the head's predictions), or a container whose
+    children keep their names (``m{i}`` -> ``m.{i}``)."""
+    if "Conv_0" in p:
+        out[f"{prefix}.conv.weight"] = _conv(p["Conv_0"]["kernel"])
+        norm = "BatchNorm_0" if "BatchNorm_0" in p else "GroupNorm_0"
+        out[f"{prefix}.bn.weight"] = np.asarray(p[norm]["scale"])
+        out[f"{prefix}.bn.bias"] = np.asarray(p[norm]["bias"])
+        if norm == "BatchNorm_0":
+            if s is None or "BatchNorm_0" not in s:
+                raise ValueError(f"{prefix}: a BN model needs its batch_stats")
+            out[f"{prefix}.bn.running_mean"] = np.asarray(s["BatchNorm_0"]["mean"])
+            out[f"{prefix}.bn.running_var"] = np.asarray(s["BatchNorm_0"]["var"])
+            out[f"{prefix}.bn.num_batches_tracked"] = np.zeros((), np.int64)
+    elif "kernel" in p:
+        out[f"{prefix}.weight"] = _conv(p["kernel"])
+        out[f"{prefix}.bias"] = np.asarray(p["bias"])
+    else:
+        for name, child in p.items():
+            sub = f"m.{name[1:]}" if name[0] == "m" and name[1:].isdigit() else name
+            _yolox_node(child, None if s is None else s.get(name), f"{prefix}.{sub}", out)
+
+
+def yolox_state_dict_from_flax(params: dict, batch_stats: dict = None) -> Dict[str, torch.Tensor]:
+    """JAX YOLOX params (and, for ``norm="BN"``, its batch_stats) -> the
+    port's state dict in the reference's names (``backbone.backbone.stem.
+    conv.*``, ``backbone.lateral_conv0.*``, ``head.stems.0.*``, ...). The
+    stem conv's input channels go from the JAX package's Focus order to the
+    reference's. A reference ``.pth`` needs no bridge: it loads as it is."""
+    stats = batch_stats or {}
+    out: Dict[str, np.ndarray] = {}
+    pafpn, s_pafpn = params["pafpn"], stats.get("pafpn", {})
+    for name, node in pafpn["backbone"].items():
+        _yolox_node(node, s_pafpn.get("backbone", {}).get(name),
+                    f"backbone.backbone.{_YOLOX_DARK[name]}", out)
+    for name, node in pafpn.items():
+        if name != "backbone":
+            _yolox_node(node, s_pafpn.get(name), f"backbone.{_YOLOX_PAFPN[name]}", out)
+    for name, node in params["head"].items():
+        _yolox_node(node, stats.get("head", {}).get(name), f"head.{_yolox_head_name(name)}", out)
+    w = out["backbone.backbone.stem.conv.conv.weight"]
+    w_ref = np.empty_like(w)
+    w_ref[:, focus_input_perm(w.shape[1] // 4)] = w      # jax[i] = ref[perm[i]]
+    out["backbone.backbone.stem.conv.conv.weight"] = w_ref
+    return {k: torch.from_numpy(np.array(v, np.int64 if v.dtype == np.int64 else np.float32,
+                                         order="C"))
+            for k, v in out.items()}
+
+
 def seeded_state_dict(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Every parameter of ``model`` drawn from ``np.random.RandomState(seed)``:
     weights N(0, 1/fan_in), norm scales 1 + 0.1 N, biases 0.1 N, layer
-    scales U(0.1, 0.5). The same seed gives the same weights on any device."""
+    scales U(0.1, 0.5); BatchNorm running means 0.1 N and variances
+    U(0.5, 2). The same seed gives the same weights on any device."""
     rs = np.random.RandomState(seed)
     out = {}
     for name, t in model.state_dict().items():
         shape = tuple(t.shape)
-        if name.endswith("gamma"):
+        if name.endswith("num_batches_tracked"):
+            out[name] = torch.zeros((), dtype=torch.int64)
+            continue
+        if name.endswith("running_var"):
+            v = rs.uniform(0.5, 2.0, shape)
+        elif name.endswith("gamma"):
             v = rs.uniform(0.1, 0.5, shape)
         elif len(shape) == 1 and name.endswith("weight"):
             v = 1.0 + 0.1 * rs.randn(*shape)

@@ -4,10 +4,12 @@
 (the port imports nothing of the JAX package). ``Config()``, the YOLOX
 config, overrides and ``parse_opts`` agree field by field, and the port's
 ``ycbv_convnext_base_rgbd()`` and ``ycbv_convnext_base()`` equal the ``cfg``
-of configs/gdrn/ycbv_convnext_base_rgbd.py and configs/gdrn/ycbv_convnext_base.py.
+of configs/gdrn/ycbv_convnext_base_rgbd.py and configs/gdrn/ycbv_convnext_base.py,
+and each detector recipe ``yolox(name)`` the ``cfg`` of configs/yolox/<name>.py.
 """
 
 import dataclasses
+import glob
 import importlib.util
 import os
 
@@ -15,7 +17,8 @@ import pytest
 
 from gdrnpp_bop2022_tpu import config as jcfg
 from gdrnpp_bop2022_torch import config as tcfg
-from gdrnpp_bop2022_torch.configs import ycbv_convnext_base, ycbv_convnext_base_rgbd
+from gdrnpp_bop2022_torch.configs import (YOLOX_RECIPES, ycbv_convnext_base,
+                                          ycbv_convnext_base_rgbd, yolox)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -83,3 +86,21 @@ def test_training_config_equals_the_config_file():
     assert (cfg.solver.ims_per_batch, cfg.solver.base_lr, cfg.solver.optimizer) == \
         (48, 8e-4, "ranger")
     assert pc.xyz_online and pc.xyz_bp and cfg.model.compute_dtype == "bfloat16"
+
+
+def test_yolox_recipes_are_the_config_files():
+    files = {os.path.basename(f)[:-3]
+             for f in glob.glob(os.path.join(_ROOT, "configs", "yolox", "[a-z]*.py"))}
+    assert files == set(YOLOX_RECIPES)
+
+
+@pytest.mark.parametrize("name", YOLOX_RECIPES)
+def test_yolox_recipe_equals_the_config_file(name):
+    path = os.path.join(_ROOT, "configs", "yolox", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_yolox_{name}_cfg_file", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    got, want = _fields(yolox(name)), _fields(mod.cfg)
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k] == want[k], k

@@ -45,5 +45,8 @@ def test_port_imports_no_jax():
               "engine.train_step", "engine.checkpoint", "engine.trainer",
               "datasets.train_loader", "utils.tb_writer", "utils.vis", "tools.train_gdrn",
               "ops.color_space", "ops.color_aug", "ops.depth_aug", "datasets.device_pool",
-              "solver.optimizers"):
+              "solver.optimizers", "models.yolox", "models.yolox.darknet",
+              "models.yolox.pafpn", "models.yolox.head", "models.yolox.yolox",
+              "datasets.yolox_loader", "eval.detection_eval", "tools.test_yolox",
+              "tools.demo_yolox", "tools.demo_gdrn"):
         assert f"gdrnpp_bop2022_torch.{m}" in out["modules"], m

@@ -129,3 +129,64 @@ def roi_batch(cfg: Config, B: int, seed: int = 0) -> dict:
 
 def to_torch(batch: dict) -> dict:
     return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# YOLOX
+# ---------------------------------------------------------------------------
+
+def yolox_images(size, seed=1, n=2):
+    # uniform noise: no symmetry a wrong Focus order or flip could hide behind
+    return np.random.RandomState(seed).uniform(0, 255, (n, size, size, 3)).astype(np.float32)
+
+
+def _random_stats(template, seed):
+    rs = np.random.RandomState(seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, leaf: (rs.uniform(0.5, 2.0, leaf.shape) if str(path[-1].key) == "var"
+                            else 0.1 * rs.randn(*leaf.shape)).astype(np.float32), template)
+
+
+def jax_yolox(norm, depthwise, wid, size, seed=0, nc=3):
+    """(JAX model in fp32, params, batch_stats or None) drawn from a seed."""
+    from gdrnpp_bop2022_tpu.models.yolox.yolox import YOLOX as JaxYOLOX
+    jm = JaxYOLOX(num_classes=nc, dep_mul=0.33, wid_mul=wid, norm=norm,
+                  depthwise=depthwise, remat=False, dtype=jnp.float32)
+    shapes = jax.eval_shape(lambda k: jm.init(k, jnp.zeros((1, size, size, 3))),
+                            jax.random.PRNGKey(0))
+    params = random_like_tree(shapes["params"], seed)
+    stats = _random_stats(shapes["batch_stats"], seed + 1) if norm == "BN" else None
+    return jm, params, stats
+
+
+def jax_apply(jm, params, stats, x):
+    v = {"params": params} if stats is None else {"params": params, "batch_stats": stats}
+    return [np.asarray(o) for o in jax.jit(jm.apply)(v, jnp.asarray(x))]
+
+
+def port_yolox(norm, depthwise, wid, sd, nc=3):
+    from gdrnpp_bop2022_torch.models.yolox.yolox import YOLOX
+    m = YOLOX(nc, 0.33, wid, depthwise=depthwise, norm=norm, dtype=torch.float32).eval()
+    m.load_state_dict(sd, strict=True)
+    return m
+
+
+def port_apply(m, x):
+    with torch.no_grad():
+        return [o.numpy() for o in m(torch.from_numpy(x))]
+
+
+def assert_rows_match(want_labels, want_scores, want_boxes, got_labels, got_scores,
+                      got_boxes, score_tol, box_tol):
+    """Two sets of detections hold the same rows: every wanted row has its
+    own got row of the same label with the score within score_tol and the
+    box within box_tol. Order is free (scores that tie within the tolerance
+    may come out in either order)."""
+    assert len(want_labels) == len(got_labels)
+    free = np.ones(len(got_labels), bool)
+    for lab, s, b in zip(want_labels, want_scores, want_boxes):
+        hit = np.nonzero(free & (np.asarray(got_labels) == lab)
+                         & (np.abs(np.asarray(got_scores) - s) <= score_tol)
+                         & (np.abs(np.asarray(got_boxes) - b).max(-1) <= box_tol))[0]
+        assert len(hit), f"no match for label {lab} score {s} box {b}"
+        free[hit[0]] = False
