@@ -104,7 +104,24 @@ wall time. Phases:
      ``model.load_dets_test=True`` (B1's launches counted, ROI/s) -> its CSV
      through ``python -m gdrnpp_bop2022_torch.tools.score_csv``; then
      ``python -m gdrnpp_bop2022_torch.tools.demo_gdrn`` with yolox-x inline
-     on 4 images.
+     on 4 images;
+ 14. detector training: the batch of the recipe ``configs.yolox("ycbv")``
+     (yolox-x, GN, Ranger, EMA, mosaic + mixup + HSV + flip, multiscale
+     (14, 26) x 32) chosen by one step's peak memory at 832 x 832 (32, else
+     16, else 8), then the recipe through ``engine.yolox_trainer.
+     train_yolox`` on 16 of the scene's 24 images as DetRecords (warmup and
+     length cut, the no-aug switch for the last iterations): step p50 / p99 and
+     images/s by CUDA events split into H2D / multiscale resize / forward +
+     loss + backward / optimizer + EMA, simOTA alone, the host's wait on the
+     loader, peak memory, kernels and copies a step and the busy share of
+     three profiled steps; on a batch of the 8 images held apart each of
+     the IoU, objectness and class losses at the EMA weights below 0.8x its
+     value at the initial weights, EMA != params, the
+     checkpoint restored bit for bit; the BN variant's running statistics
+     against a float64 recomputation of the biased update; one fp32 BN step
+     card vs CPU and simOTA card vs CPU; yolox_s learns a two-class split to
+     AP50 >= 0.5; ``python -m gdrnpp_bop2022_torch.tools.test_yolox --ckpt``
+     serves the trained EMA weights and writes the handoff json.
 
 The scene's sensor depth is analytic (ray-ellipsoid), never rendered by the
 kernel under test. Any failure raises (exit code 1). Without a CUDA device
@@ -264,6 +281,53 @@ DET_CONF_PLAIN = 0.01
 DET_REPS = 5
 DET_PARITY_TOL = 1e-3
 DEMO_IMAGES = 4
+# phase 14: the BOP'22 detector recipe configs.yolox("ycbv") trained through
+# train_yolox for YX_STEPS iterations (a YX_WARMUP-iteration warmup, the last
+# YX_NOAUG without mosaic and mixup, with L1) at the first batch of
+# YX_BATCHES whose one-step peak memory at the largest multiscale size
+# (26 x 32 = 832) stays under YX_MEM_GB, on the scene's images less the last
+# YX_HELD; on a batch drawn without augmentation from those YX_HELD images,
+# each of loss_iou, loss_obj and loss_cls at the EMA weights must fall below
+# YX_LOSS_DROP x its value at the initial weights. Step times skip the first TRAIN_SKIP steps. The BN variant trains
+# YX_BN_STEPS iterations at batch YX_BN_BATCH; its running statistics after
+# one more step must equal a float64 recomputation of the biased update on
+# that step's BN inputs within YX_BN_TOL of each tensor's largest value.
+# Card vs CPU, one fp32 step of a BN YOLOX (dep 0.33, wid 0.125, 3 classes)
+# at 128 x 128: the loss within YX_PAR_LOSS_TOL relative, the BN running
+# statistics after the step within YX_PAR_TOL and the gradients within
+# YX_PAR_GRAD_TOL of each tensor's largest magnitude (the card read 1.11e-4
+# in PERF.md's runs C and D), the parameters within
+# YX_PAR_TOL of theirs plus what the gradients' difference moves them by
+# (the step is lr x the centralized gradient: 2 lr max|dg|; the biases start
+# at 0, so theirs carries the gradient's relative error): the backward through
+# ~100 BatchNorms in training mode amplifies summation-order differences
+# (on the CPU alone, inputs moved by 1e-7 relative move these gradients by
+# 1.1-3.5e-4 of their largest; the JAX package and the port differ by 7e-4,
+# tests/test_torch_yolox_step.py). simOTA on the card equals the CPU's on a
+# tie-free batch at 640 x 640 (fg and matched GT exactly, IoU within 1e-6).
+# It learns: yolox_s at 64 x 64 on a two-class split of YX_LEARN_IMAGES
+# images (two shapes a 160 x 120 image, as tests/test_yolox_pipeline.py's
+# cubes), YX_LEARN_STEPS iterations at batch 8 through train_yolox, AP50 of
+# the EMA weights by evaluate_yolox_records at least YX_LEARN_AP50.
+YX_BATCHES = (32, 16, 8)
+YX_PROBE_SIZE = 832
+YX_MEM_GB = 75.0
+YX_STEPS = 40
+YX_WARMUP = 5
+YX_NOAUG = 10
+YX_LOG_PERIOD = 5
+YX_LOSS_DROP = 0.8
+YX_HELD = 8
+YX_BN_STEPS = 3
+YX_BN_BATCH = 8
+YX_BN_TOL = 1e-5
+YX_PAR_LOSS_TOL = 1e-5
+YX_PAR_TOL = 1e-4
+YX_PAR_LR = 1e-3
+YX_PAR_GRAD_TOL = 5e-4
+YX_LEARN_IMAGES = 6
+YX_LEARN_STEPS = 200
+YX_LEARN_AP50 = 0.5
 
 
 def check(cond, msg):
@@ -355,7 +419,7 @@ def kernel_ms(fn, names, iters=20, per_call=None):
 
 def phase_device():
     name = torch.cuda.get_device_name(0)
-    log(f"[1/13] device: {name} x{torch.cuda.device_count()}  torch "
+    log(f"[1/14] device: {name} x{torch.cuda.device_count()}  torch "
         f"{torch.__version__}  CUDA {torch.version.cuda}  python "
         f"{sys.version.split()[0]}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -369,7 +433,7 @@ def phase_device():
     build_kernel_libraries(["layer_norm", "raster"])    # nvcc, both at once
     for lib in ("layer_norm", "raster"):
         load_kernel_library(lib)
-    log(f"[1/13] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
+    log(f"[1/14] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s")
     return name, card
 
@@ -426,11 +490,11 @@ def ln_times(card):
         for key, v in zip(t, (k, kc, p, lib, libc, cp)):
             t[key] += n * v
         n_bytes += n * (2 * x.numel() * x.element_size() + 2 * C * 4)
-        log(f"[2/13] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
+        log(f"[2/14] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
             f"{kc:.4f} ms, plain {p:.4f} ms, F.layer_norm hot {lib:.4f} ms cold {libc:.4f} ms,"
             f" copy_ cold {cp:.4f} ms")
     t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[2/13] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
+    log(f"[2/14] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
         f"{t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms ({100 * t['bound_ms'] / t['cold_ms']:.1f}% "
         f"of the bound cold); plain {t['plain_ms']:.4f} ms; F.layer_norm hot "
         f"{t['library_ms']:.4f} ms, cold {t['library_cold_ms']:.4f} ms; copy_ of the same "
@@ -458,7 +522,7 @@ def phase_kernels(card):
         want = off == 0 and C * x.element_size() % 16 == 0
         check(vec == want, f"B1 path for C={C} {dt} offset {off}: vector={vec}")
         worst = max(worst, err)
-        log(f"[2/13] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
+        log(f"[2/14] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
             f"{'vector' if vec else 'scalar'} path: max_abs_err={err:.3g}")
         check(ok, f"B1 disagrees with its plain version at rows={rows} C={C} "
                   f"{dt} offset {off}: max abs err {err}")
@@ -705,7 +769,7 @@ def seam_scene(n=8, device="cuda"):
             dev(np.zeros((n, 3), np.float32)), dev(K), 64, 64)
 
 
-def _raster_case(label, verts, faces, R, t, K, H, W, tag="[3/13]"):
+def _raster_case(label, verts, faces, R, t, K, H, W, tag="[3/14]"):
     """The pack kernel vs the torch packing and the cull rule, and the
     kernel (both modes) vs plain (both modes), at one shape; returns the
     worst depth / xyz errors."""
@@ -832,7 +896,7 @@ def phase_raster(card, scene, bank):
     # faces per tile after culling, and the bound, at the flagship
     bd = raster_bound(*flag)
     pt = bd["per_tile"].float()
-    log(f"[3/13] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
+    log(f"[3/14] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
         f"{float(pt.mean()):.1f}, max {int(pt.max())} of {F}; {bd['pairs']:.4e} pixel-face "
         f"pairs inside the boxes vs {bd['all_pairs']:.4e} all pairs")
     # times at the flagship, depth only (the mode depth refinement runs)
@@ -855,14 +919,14 @@ def phase_raster(card, scene, bank):
                                                   max_block=PLAIN_MAX_BLOCK), iters=3,
                    warmup=1)
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"          # noqa: E731
-    log(f"[3/13] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
+    log(f"[3/14] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
         f"{t['cold_ms']:.4f} ms (2 launches; the raster kernel alone {kernel_only_ms:.4f} ms "
         f"by events, {fmt(t['kernel_ms'])} by the profiler, the pack kernel "
         f"{fmt(t['pack_kernel_ms'])}); attribute mode {k_attr_ms:.4f} ms; plain "
         f"{p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms ({bd['pairs']:.4e} tests x "
         f"{RASTER_OPS_PER_TEST} fp32 ops at 67 TFLOP/s, {bd['bound_by']}), all-pairs bound "
         f"{bd['all_pairs_bound_ms']:.4f} ms  [{card}]")
-    log(f"[3/13] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
+    log(f"[3/14] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
         f"kernels {full_ms:.4f} ms of device time per call  [{card}]")
     vsd = [_vsd_shape(card, vsd_shape_input(scene, bank, np.random.RandomState(SEED + 20 + i),
                                             n, bh, bw), n)
@@ -956,7 +1020,7 @@ def _vsd_shape(card, inp, n):
     bd = raster_bound(*inp)
     pt = bd["per_tile"].float()
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
-    log(f"[3/13] B2 {label} ({faces.shape[1]} faces): == plain version bit for bit "
+    log(f"[3/14] B2 {label} ({faces.shape[1]} faces): == plain version bit for bit "
         f"({int(hit.sum())} px hit); hot {hot:.4f} ms, cold {cold:.4f} ms per call (the "
         f"raster kernel {fmt(k['raster_kernel'])}, pack {fmt(k['pack_faces_kernel'])}; the "
         f"raster kernel on empty boxes, i.e. its box tests alone, {fmt(box_ms)}); faces per "
@@ -1065,11 +1129,11 @@ def phase_slice(card, tmp):
     check(launches == LN_PER_FORWARD * forwards[0],
           f"layer_norm launches {launches} != 40 x {forwards[0]} forwards")
     orth = _check_rows(results, n_rois, tmp, "rgb")
-    log(f"[4/13] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
+    log(f"[4/14] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
         f"batches of {BATCH} + warm-up: {forwards[0]} forwards, layer_norm "
         f"launches {launches} = 40 x {forwards[0]}; rows finite, "
         f"max|R^T R - I| = {orth:.2e}; CSV {len(results)} rows")
-    log(f"[4/13] RGB serving (ROI crop + forward + decode, host clock after "
+    log(f"[4/14] RGB serving (ROI crop + forward + decode, host clock after "
         f"synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -1084,7 +1148,7 @@ def phase_slice(card, tmp):
                               dev(b0["labels"]), dev(extents).float(),
                               input_res=pc.input_res, output_res=pc.output_res)
         fwd_ms = cuda_ms(lambda: model(**rb), iters=10)
-    log(f"[4/13] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[4/14] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s  [{card}]")
     serve = {"model": model, "forwards": forwards, "extents": extents, "kw": kw,
              "batches": lambda: iter_test_batches(by_im, dets, batch_size=BATCH),
@@ -1149,13 +1213,13 @@ def phase_rgbd_slice(card, scene, bank, tmp):
     check(p_launches == r_launches, f"RGB-D: pack launches {p_launches} != raster "
           f"launches {r_launches}")
     orth = _check_rows(results, n_rois, tmp, "rgbd")
-    log(f"[5/13] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
+    log(f"[5/14] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
         f"{bank.faces.shape[0]} meshes x {bank.faces.shape[1]} faces) in {nb} batches of "
         f"{BATCH} + warm-up, post_mode=depth_refine x{iters}: {forwards[0]} forwards, "
         f"layer_norm launches {ln_launches} = 80 x {forwards[0]}, raster launches "
         f"{r_launches} = {iters} x {nb + 1} (and as many pack launches); rows finite, max|R^T R - I| = {orth:.2e}; "
         f"CSV {len(results)} rows")
-    log(f"[5/13] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
+    log(f"[5/14] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
         f"after synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -1184,7 +1248,7 @@ def phase_rgbd_slice(card, scene, bank, tmp):
                     scales, bv, bf, rb["roi_extents"])
         refine_ms = cuda_ms(lambda: depth_refine_batch(*ref_args, iters=iters,
                                                        out_res=pc.output_res), iters=10)
-    log(f"[5/13] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[5/14] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s; depth refine x{iters}: {refine_ms:.3f} ms "
         f"per batch  [{card}]")
     rows2 = {k: v[:2] for k, v in rb.items()}
@@ -1212,7 +1276,7 @@ def phase_refine(card, scene, bank):
           f"depth refine left a z error of {worst_z} m from a {REFINE_OFFSET_M} m offset")
     dt = float((t_k - t_p).abs().max())
     check(dt <= REFINE_T_TOL, f"refined t, B2 vs plain rasterizer: {dt} m")
-    log(f"[6/13] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
+    log(f"[6/14] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
         f"in z, 2 iterations: z error max {worst_z * 1e3:.3f} mm, mean "
         f"{float(z_err.mean()) * 1e3:.3f} mm (limit {0.3 * REFINE_OFFSET_M * 1e3:.1f} mm); "
         f"B2 vs plain rasterizer max |dt| = {dt:.3g} m  [{card}]")
@@ -1267,7 +1331,7 @@ def phase_pnp(card, scene, bank, serve, tmp):
         check(r_err.max() < PNP_R_TOL_DEG and t_err.max() < PNP_T_TOL_M,
               f"{name} from perfect dense outputs: R error {r_err.max()} deg, t error "
               f"{t_err.max()} m")
-        log(f"[7/13] {name} recovers {n} known poses from B2-rendered XYZ / mask / 2D coords "
+        log(f"[7/14] {name} recovers {n} known poses from B2-rendered XYZ / mask / 2D coords "
             f"at {res}x{res}: R error max {r_err.max():.4f} deg, t error max "
             f"{t_err.max() * 1e3:.3f} mm (limits {PNP_R_TOL_DEG} deg, "
             f"{PNP_T_TOL_M * 1e3:.0f} mm); {ms:.3f} ms per batch of {n}  [{card}]")
@@ -1304,7 +1368,7 @@ def phase_pnp(card, scene, bank, serve, tmp):
             post_ms = cuda_ms(post[mode], iters=5, warmup=1)
         times[mode] = {"post_ms": post_ms, "p50_ms": stats["p50_ms"],
                        "rois_per_sec": stats["rois_per_sec"], "launches": launches}
-        log(f"[7/13] RGB post_mode={mode}: served {n_rois} ROIs in {nb} batches of {BATCH} + "
+        log(f"[7/14] RGB post_mode={mode}: served {n_rois} ROIs in {nb} batches of {BATCH} + "
             f"warm-up, layer_norm launches {launches} = 40 x {forwards[0]}; rows finite, "
             f"max|R^T R - I| = {orth:.2e}; {stats['rois_per_sec']:.1f} ROI/s, p50 "
             f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch; the PnP step "
@@ -1383,7 +1447,7 @@ def phase_score(card, scene, bank, tmp):
     check(all(s_gt[k] == 1.0 for k in ar_keys),
           f"GT poses as estimates: {({k: s_gt[k] for k in ar_keys})}")
     sec = ", ".join(f"{k} {v:.3f} s" for k, v in stats["seconds"].items())
-    log(f"[8/13] scoring GT poses as estimates ({len(gts)} GT, {n_vis} at visib >= 0.1, "
+    log(f"[8/14] scoring GT poses as estimates ({len(gts)} GT, {n_vis} at visib >= 0.1, "
         f"{stats['n_targets']} targets, {stats['n_pairs']} pairs) on the card, "
         f"vsd_mode=full: AR = AR_vsd = AR_mssd = AR_mspd = 1.0; VSD pairs per render "
         f"{stats['vsd_pairs']}; {launches} B2 calls; {sec}; "
@@ -1411,7 +1475,7 @@ def phase_score(card, scene, bank, tmp):
               f"ladder {name}: card vs CPU gap {gap} on image {cpu_im}")
         ladder.append({"rung": name, **{k: s_b2[k] for k in ar_keys},
                        "seconds": st["seconds"]["total"]})
-        log(f"[8/13] ladder {name}: " + " ".join(f"{k}={s_b2[k]:.4f}" for k in ar_keys)
+        log(f"[8/14] ladder {name}: " + " ".join(f"{k}={s_b2[k]:.4f}" for k in ar_keys)
             + f" (B2 == plain rasterizer on the card, every key; image {cpu_im}'s "
             f"{len(sub)} GT on the card vs the CPU: max gap {gap:.2e}); "
             f"{st['seconds']['total']:.3f} s, {st['targets_per_s']:.1f} targets/s; with the "
@@ -1450,7 +1514,7 @@ def phase_score(card, scene, bank, tmp):
             n_fit += len(m)
             n_eq += int((diff == 0).sum())
             worst = max(worst, float((diff / share).max()))
-    log(f"[8/13] bbox VSD vs full-image VSD on the card, {n_fit} pairs whose plan fits a "
+    log(f"[8/14] bbox VSD vs full-image VSD on the card, {n_fit} pairs whose plan fits a "
         f"bucket (of {len(gts)}; ladder rung {LADDER[-1][0]}): {n_eq} equal, the rest within "
         f"one pixel's share of their union (worst {worst:.2f} of it): the window's principal "
         f"point, shifted by the integer origin, rounds u by <= 1 ulp  [{card}]")
@@ -1466,7 +1530,7 @@ def phase_score(card, scene, bank, tmp):
     check(all(k in cli and np.isfinite(cli[k]) and 0.0 <= cli[k] <= 1.0 for k in ar_keys)
           and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in cli.values()),
           f"score_csv CLI scores {cli}")
-    log(f"[8/13] python -m gdrnpp_bop2022_torch.tools.score_csv on the served RGB-D CSV: "
+    log(f"[8/14] python -m gdrnpp_bop2022_torch.tools.score_csv on the served RGB-D CSV: "
         + " ".join(f"{k}={cli[k]:.4f}" for k in ar_keys)
         + f", {len(cli)} keys all finite in [0, 1]; {time.perf_counter() - t0:.1f} s "
         f"with the process start  [{card}]")
@@ -1545,13 +1609,13 @@ def ln_backward_times(card):
             t[key] += n * v
         n_bytes += n * (3 * x.numel() * 2 + 2 * rows * 4 + 3 * C * 4)
         fwd_bytes += n * (2 * x.numel() * 2 + 2 * rows * 4 + 2 * C * 4)
-        log(f"[10/13] B1 backward rows={rows} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms "
+        log(f"[10/14] B1 backward rows={rows} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms "
             f"cold {kc:.4f} ms, plain {p:.4f} ms, native_layer_norm_backward hot {lib:.4f} "
             f"ms, copy_ of the same bytes cold {cp:.4f} ms; forward with statistics cold "
             f"{fs:.4f} ms")
     t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
     t["fwd_stats_bound_ms"] = fwd_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[10/13] B1 backward per training step at batch {TRAIN_BATCH} (40 LayerNorms, "
+    log(f"[10/14] B1 backward per training step at batch {TRAIN_BATCH} (40 LayerNorms, "
         f"bf16): kernel hot {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms "
         f"({100 * t['bound_ms'] / t['cold_ms']:.1f}% of the bound cold); plain "
         f"{t['plain_ms']:.4f} ms; native_layer_norm_backward hot {t['library_ms']:.4f} ms; "
@@ -1576,7 +1640,7 @@ def phase_ln_backward(card):
         x = torch.empty(rows * C + off, dtype=dt, device="cuda")[off:].view(rows, C)
         vec = _vector_path(x, x, torch.empty(C, device="cuda"))
         worst = max(worst, err)
-        log(f"[10/13] B1 backward rows={rows} C={C} {str(dt)[6:]} offset={off} "
+        log(f"[10/14] B1 backward rows={rows} C={C} {str(dt)[6:]} offset={off} "
             f"{'vector' if vec else 'scalar'} path: dx max_abs_err={err:.3g}, dweight/dbias "
             f"max err / sum|terms| = {rel:.3g}")
         check(ok, f"B1 backward disagrees with its plain version at rows={rows} C={C} {dt} "
@@ -1702,7 +1766,7 @@ def _aug_check(card, cfg, records, meta, bg_paths):
     check(bg_exact and err <= AUG_TOL and 0 < float(gate.sum()) < TRAIN_BATCH,
           f"augmentation card vs CPU: background exact {bg_exact}, colour max err {err}")
     ms = cuda_ms(lambda: augment(), iters=5, warmup=1)
-    log(f"[10/13] background replacement (p {inp.change_bg_prob}, {len(bg_paths)} images) and "
+    log(f"[10/14] background replacement (p {inp.change_bg_prob}, {len(bg_paths)} images) and "
         f"{aug_type} colour augmentation (p {inp.color_aug.prob}) of a training batch "
         f"({TRAIN_BATCH} x 480x640) on the card vs their plain versions on the CPU, same "
         f"draws, first {n} images: background bit for bit ({int(gate.sum())} of "
@@ -1730,7 +1794,7 @@ def _train_b2(card, records, bank, meta):
            dev("gt_rots"), dev("gt_transes"),
            centered_crop_K(dev("Ks"), dev("centers"), dev("scales"), 64), 64, 64)
     F = inp[1].shape[1]
-    err = _raster_case(f"training batch B={TRAIN_BATCH} 64x64 F={F}", *inp, tag="[10/13]")
+    err = _raster_case(f"training batch B={TRAIN_BATCH} 64x64 F={F}", *inp, tag="[10/14]")
     call = lambda: render_depth_xyz_cuda(*inp)                      # noqa: E731
     bd = raster_bound(*inp)
     # hot by the profiler: events around back-to-back calls of ~40 us time
@@ -1739,7 +1803,7 @@ def _train_b2(card, records, bank, meta):
          "plain_ms": cuda_ms(lambda: render_depth_xyz_batch(*inp, max_block=PLAIN_MAX_BLOCK),
                              iters=3, warmup=1),
          "bound_ms": bd["bound_ms"], "max_abs_err": err, "faces": F}
-    log(f"[10/13] B2 attribute mode at the training batch ({TRAIN_BATCH} ROIs x 64^2 x {F} "
+    log(f"[10/14] B2 attribute mode at the training batch ({TRAIN_BATCH} ROIs x 64^2 x {F} "
         f"faces, decimated): hot {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({bd['pairs']:.4e} pixel-face "
         f"pairs in the boxes, {bd['bound_by']}); faces per tile mean "
@@ -1747,7 +1811,7 @@ def _train_b2(card, records, bank, meta):
     return t
 
 
-def _train_parity(card, records, bank, meta, over=None, tag="[10/13]"):
+def _train_parity(card, records, bank, meta, over=None, tag="[10/14]"):
     """One fp32 step of the tiny config (with ``over``: the dual stream) on
     the card and on the CPU from the same weights and batch (built once on
     the CPU): losses, grads and the params after the step."""
@@ -1824,7 +1888,7 @@ def _train_parity(card, records, bank, meta, over=None, tag="[10/13]"):
         f"{par_err:.2e} (limit {par_tol})")
 
 
-def _train_profile(card, cfg, state, records, bank, meta, bg_paths, tag="[10/13]"):
+def _train_profile(card, cfg, state, records, bank, meta, bg_paths, tag="[10/14]"):
     """Where a training step's device time goes: torch.profiler over
     TRAIN_PROFILE_STEPS steps (host prep of one loader batch included, with
     its augmentations, the loader's wait not): kernel time by name, and the
@@ -2072,7 +2136,7 @@ def phase_train(card, scene, tmp):
     records = records_for(cfg, meta, cfg.datasets.train)
     check(bank.faces.shape[1] <= pc.gt_max_faces and len(records) >= TRAIN_BATCH,
           f"bank faces {bank.faces.shape}, {len(records)} records")
-    log(f"[10/13] train split: {TRAIN_IMAGES} 480x640 images x {DETS_PER_IMAGE} ellipsoids, "
+    log(f"[10/14] train split: {TRAIN_IMAGES} 480x640 images x {DETS_PER_IMAGE} ellipsoids, "
         f"analytic depth, mask/ and mask_visib/ PNGs from the analytic hits, {len(records)} "
         f"records at visib >= {cfg.datasets.filter_visib_thr}; {len(bg_paths)} 640x480 "
         f"backgrounds; bank decimated from 4096 to {bank.faces.shape[1]} faces "
@@ -2082,7 +2146,7 @@ def phase_train(card, scene, tmp):
     aug = _aug_check(card, cfg, records, meta, bg_paths)
     ctx = {"meta": meta, "records": records, "bank": bank, "bg_paths": bg_paths,
            "common": common, "tmp": tmp}
-    run = _train_recipe(card, cfg, ctx, TRAIN_STEPS, TRAIN_LOSS_DROP, "[10/13]",
+    run = _train_recipe(card, cfg, ctx, TRAIN_STEPS, TRAIN_LOSS_DROP, "[10/14]",
                         LN_PER_FORWARD)
     with no_tf32():
         _train_parity(card, records, bank, meta)
@@ -2112,14 +2176,14 @@ def phase_train_rgbd(card, ctx):
         err, rel, ok = _ln_bwd_case(TRAIN_BATCH * r, C, torch.bfloat16, g)
         check(ok, f"B1 backward at ({TRAIN_BATCH * r}, {C}) bf16: dx err {err}, rel {rel}")
         worst = max(worst, err)
-    log(f"[11/13] B1 backward vs plain at the dual stream's shapes (both backbones: "
+    log(f"[11/14] B1 backward vs plain at the dual stream's shapes (both backbones: "
         f"{', '.join(f'({TRAIN_BATCH * r}, {C})' for r, C, _ in LN_SHAPES)}, bf16): dx max "
         f"abs err {worst:.3e}, within one bf16 ulp + 1e-5; dweight / dbias within "
         f"{LN_BWD_REL_TOL} of the sum of their terms")
-    run = _train_recipe(card, cfg, ctx, TRAIN_RGBD_STEPS, TRAIN_RGBD_LOSS_DROP, "[11/13]",
+    run = _train_recipe(card, cfg, ctx, TRAIN_RGBD_STEPS, TRAIN_RGBD_LOSS_DROP, "[11/14]",
                         2 * LN_PER_FORWARD)
     with no_tf32():
-        _train_parity(card, ctx["records"], ctx["bank"], ctx["meta"], over=DSTREAM, tag="[11/13]")
+        _train_parity(card, ctx["records"], ctx["bank"], ctx["meta"], over=DSTREAM, tag="[11/14]")
     return dict(run, ln_bwd_err=worst)
 
 
@@ -2156,7 +2220,7 @@ def phase_pool(card, ctx):
     finally:
         host.close()
         pooled.close()
-    log(f"[10/13] pool mode: {POOL_BATCHES} training batches from frames kept on the card "
+    log(f"[10/14] pool mode: {POOL_BATCHES} training batches from frames kept on the card "
         f"({pools.nbytes / 1e9:.2f} GB: {POOL_FRAMES} RGB, {2 * POOL_FRAMES} mask, "
         f"{cfg.train.device_pool_bg_frames} background slots; uploads on a side stream) equal "
         f"the host batches of the same seed and draws bit for bit (augmented crops, masks, "
@@ -2167,7 +2231,7 @@ def phase_pool(card, ctx):
     torch.cuda.synchronize()
     check(state.step == POOL_STEPS, "pool-mode training did not run")
     steps_ms = stats["step"][1:]
-    log(f"[10/13] pool-mode training (train.device_pool_frames={POOL_FRAMES}) for "
+    log(f"[10/14] pool-mode training (train.device_pool_frames={POOL_FRAMES}) for "
         f"{POOL_STEPS} steps: step mean {float(np.mean(steps_ms)):.2f} ms (steps 2.."
         f"{POOL_STEPS - 1}), H2D + pool gathers {float(np.mean(stats['h2d'][1:])):.2f} ms, host "
         f"wait {float(np.mean(stats['host_wait'][1:])):.2f} ms; pools {stats['pool']}  "
@@ -2292,7 +2356,7 @@ def phase_detector(card, scene):
                     meta.num_classes)
     check(abs(m_gt["mAP"] - 100 / 101) < 1e-9 and abs(m_gt["AP50"] - 100 / 101) < 1e-9,
           f"GT boxes as detections: {m_gt}")
-    log(f"[12/13] {len(keys)} images letterboxed to {rc.input_size}^2 in batches of "
+    log(f"[12/14] {len(keys)} images letterboxed to {rc.input_size}^2 in batches of "
         f"{DET_BATCH}; GT boxes as detections: mAP = AP50 = {m_gt['mAP']:.6f} (100/101, the "
         f"top of coco_map's 101-point interpolation)")
     res, models = {}, {}
@@ -2347,7 +2411,7 @@ def phase_detector(card, scene):
         with torch.inference_mode():
             t["launches_plain"] = _launches(lambda: plain(x))
             t["launches_tta"] = _launches(lambda: tta(x))
-        log(f"[12/13] yolox-x {norm} ({t['params'] / 1e6:.2f} M params, bf16, batch {DET_BATCH} at "
+        log(f"[12/14] yolox-x {norm} ({t['params'] / 1e6:.2f} M params, bf16, batch {DET_BATCH} at "
             f"640^2): forward {t['forward_ms']:.2f} ms; plain detection (forward + decode + "
             f"NMS, conf {DET_CONF_PLAIN}) {t['plain_ms']:.2f} ms = {t['plain_img_s']:.1f} "
             f"images/s, NMS {t['nms_plain_ms']:.3f} ms ({100 * t['nms_share_plain']:.1f}%), "
@@ -2357,7 +2421,7 @@ def phase_detector(card, scene):
             f"{t['tta_img_s']:.1f} images/s, NMS {t['nms_tta_ms']:.3f} ms "
             f"({100 * t['nms_share_tta']:.2f}%), {t['launches_tta']} kernels and copies a "
             f"batch, peak {t['peak_gb']:.2f} GB (CUDA events)  [{card}]")
-        log(f"[12/13] {norm}: the card's NMS == a numpy greedy NMS on the same raw rows, every "
+        log(f"[12/14] {norm}: the card's NMS == a numpy greedy NMS on the same raw rows, every "
             f"image (kept {t['kept_plain']} plain, {t['kept_tta']} under TTA; scores vs "
             f"numpy's decode {t['decode_err']:.1e}); random weights score mAP "
             f"{t['map_random']:.4f} on the scene's GT boxes")
@@ -2380,7 +2444,7 @@ def phase_detector(card, scene):
             check(errs[norm] <= DET_PARITY_TOL and all(torch.isfinite(o).all()
                                                        for o in outs["cuda"]),
                   f"yolox-x {norm} fp32 card vs CPU: {errs[norm]} > {DET_PARITY_TOL}")
-    log(f"[12/13] yolox-x fp32 card vs CPU on 2 images, TF32 off: raw outputs within "
+    log(f"[12/14] yolox-x fp32 card vs CPU on 2 images, TF32 off: raw outputs within "
         f"GN {errs['GN']:.2e} / BN {errs['BN']:.2e} of each level's largest magnitude "
         f"(limit {DET_PARITY_TOL})")
     torch.cuda.empty_cache()
@@ -2419,7 +2483,7 @@ def phase_two_stage(card, scene, tmp):
           and all(np.isfinite(r["bbox_est"]).all() and 0 < r["score"] <= 1
                   for v in handoff.values() for r in v), "test_yolox's handoff json")
     rate = re.search(r"([0-9.]+) images/s in detection", proc.stdout)
-    log(f"[13/13] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv (yolox-x GN "
+    log(f"[13/14] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv (yolox-x GN "
         f"bf16, TTA 5 scales x flip, batch 8, random weights): {N_IMAGES} images, {n_rows} "
         f"rows in the handoff json; {rate.group(1) if rate else '?'} images/s in detection "
         f"(host clock after the copy back), {cli_s:.1f} s for the whole CLI with the process "
@@ -2459,7 +2523,7 @@ def phase_two_stage(card, scene, tmp):
     ar_keys = ("AR", "AR_vsd", "AR_mssd", "AR_mspd")
     check(all(np.isfinite(scores[k]) and 0.0 <= scores[k] <= 1.0 for k in ar_keys),
           f"two-stage scores {scores}")
-    log(f"[13/13] test_gdrn (flagship Config(), bf16) on the handoff json with "
+    log(f"[13/14] test_gdrn (flagship Config(), bf16) on the handoff json with "
         f"model.load_dets_test=True (top 1 per object): {served.group(1)} ROIs in "
         f"{served.group(2)} batches, {served.group(3)} ROI/s, p50 {served.group(4)} ms a batch "
         f"(host clock after synchronize), {gdrn_s:.1f} s in all; {forwards[0]} forwards, "
@@ -2482,12 +2546,474 @@ def phase_two_stage(card, scene, tmp):
     check(drawn == sorted(os.path.basename(p) for p in imgs[:DEMO_IMAGES]),
           f"demo_gdrn drew {drawn}")
     n_obj = sum(int(n) for n in re.findall(r"\((\d+) objects\)", proc.stdout))
-    log(f"[13/13] python -m gdrnpp_bop2022_torch.tools.demo_gdrn with yolox-x inline (GN, bf16, "
+    log(f"[13/14] python -m gdrnpp_bop2022_torch.tools.demo_gdrn with yolox-x inline (GN, bf16, "
         f"conf 0.3) and the flagship GDRN on {DEMO_IMAGES} images: {n_obj} posed objects drawn, "
         f"{demo_s:.1f} s with the process start  [{card}]")
     return {"launches": launches, "forwards": forwards[0], "rois": len(results),
             "roi_per_s": float(served.group(3)), "test_yolox_cli_s": cli_s,
             "scores": {k: scores[k] for k in ar_keys}}
+
+
+# ---------------------------------------------------------------------------
+# detector training (phase 14)
+# ---------------------------------------------------------------------------
+
+def _yx_batch(B, S, nc, rs, G=60, device="cuda"):
+    """A random detection batch on ``device``: noise images (B, S, S, 3) and
+    1..G valid GT boxes an image, padded to G (the loader's max_gt)."""
+    boxes = np.zeros((B, G, 4), np.float32)
+    boxes[..., :2] = rs.uniform(0.1 * S, 0.9 * S, (B, G, 2))
+    boxes[..., 2:] = rs.uniform(0.02 * S, 0.4 * S, (B, G, 2))
+    n = rs.randint(1, G + 1, B)
+    batch = {"images": rs.uniform(0, 255, (B, S, S, 3)).astype(np.float32),
+             "gt_boxes": boxes, "gt_labels": rs.randint(0, nc, (B, G)).astype(np.int32),
+             "gt_valid": np.arange(G)[None] < n[:, None]}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _yx_state(nc, size, norm, seed, lr, device="cuda", dtype=torch.bfloat16):
+    """A train state as train_yolox builds it: flax-default weights from the
+    seed, clip 35 + Ranger at ``lr`` (a constant), EMA 0.9998."""
+    from gdrnpp_bop2022_torch.engine.train_state import create_train_state
+    from gdrnpp_bop2022_torch.engine.yolox_trainer import (build_yolox_optimizer,
+                                                           init_yolox_weights)
+    from gdrnpp_bop2022_torch.models.yolox import build_yolox
+    model = build_yolox(nc, size, norm=norm, device=device, dtype=dtype)
+    init_yolox_weights(model, seed)
+    model.train()
+    return create_train_state(model, build_yolox_optimizer(model, lr, "ranger", 0.0),
+                              ema_decay=0.9998)
+
+
+def _yx_pick_batch(card, nc):
+    """The first batch of YX_BATCHES whose one training step of yolox-x (GN,
+    bf16) at YX_PROBE_SIZE^2 peaks under YX_MEM_GB; each tried batch's peak."""
+    import gc
+    from gdrnpp_bop2022_torch.engine.yolox_trainer import make_yolox_train_step
+    step = make_yolox_train_step()
+    tried = {}
+    for B in YX_BATCHES:
+        state = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            state = _yx_state(nc, "yolox_x", "GN", SEED, 1e-4)
+            step(state, _yx_batch(B, YX_PROBE_SIZE, nc, np.random.RandomState(SEED)))
+            torch.cuda.synchronize()
+            tried[B] = torch.cuda.max_memory_allocated() / 1e9
+        except torch.cuda.OutOfMemoryError:
+            tried[B] = None
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        if tried[B] is not None and tried[B] < YX_MEM_GB:
+            break
+    log(f"[14/14] yolox-x GN bf16, one training step at {YX_PROBE_SIZE}^2: peak "
+        "max_memory_allocated " + ", ".join(
+            f"batch {b}: " + (f"{gb:.2f} GB" if gb is not None else "out of memory")
+            for b, gb in tried.items()) + f" (limit {YX_MEM_GB} GB)  [{card}]")
+    B = next((b for b, gb in tried.items() if gb is not None and gb < YX_MEM_GB), None)
+    check(B is not None, f"no batch of {YX_BATCHES} fits: {tried}")
+    return B, tried
+
+
+def _yx_loss(model, batch, weights=None):
+    """yolox_loss's terms of ``model`` (or of it with ``weights``) on a
+    batch, no gradient: {name: float}."""
+    from gdrnpp_bop2022_torch.models.yolox.head import yolox_loss
+    with torch.no_grad():
+        imgs = batch["images"].float()
+        outs = (model(imgs) if weights is None
+                else torch.func.functional_call(model, weights, (imgs,)))
+        losses = yolox_loss(outs, model.strides, batch["gt_boxes"], batch["gt_labels"],
+                            batch["gt_valid"])
+        return {k: float(losses[k]) for k in ("loss_iou", "loss_obj", "loss_cls", "total_loss")}
+
+
+def _yx_profile(card, state, batch, B):
+    """torch.profiler over TRAIN_PROFILE_STEPS steps on a batch already on
+    the card (the loader's wait excluded): wall, device busy share, kernels
+    and copies a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from gdrnpp_bop2022_torch.engine.yolox_trainer import make_yolox_train_step
+    step = make_yolox_train_step()
+    step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PROFILE_STEPS):
+            step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILE_STEPS
+    dev = lambda e: (getattr(e, "self_device_time_total", None)          # noqa: E731
+                     or getattr(e, "self_cuda_time_total", 0.0))
+    ev = [(e.key, dev(e) / 1e3 / TRAIN_PROFILE_STEPS, e.count // TRAIN_PROFILE_STEPS)
+          for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev(e) > 0
+          and not getattr(e, "is_user_annotation", False)]
+    busy = sum(ms for _, ms, _ in ev)
+    ev.sort(key=lambda e: -e[1])
+    n_k = sum(c for *_, c in ev)
+    log(f"[14/14] profiled yolox-x training step at batch {B}, 640^2 ({TRAIN_PROFILE_STEPS} "
+        f"steps, the batch on the card): {wall_ms:.2f} ms wall, {busy:.2f} ms of device time "
+        f"({100 * busy / wall_ms:.1f}% busy), {n_k} kernels and copies; top (ms per step, "
+        f"count): " + "; ".join(f"{k[:60]} {ms:.2f} ({c})" for k, ms, c in ev[:TRAIN_PROFILE_TOP])
+        + f"  [{card}]")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "kernels": n_k}
+
+
+def _yx_recipe(card, scene, tmp):
+    """configs.yolox("ycbv") through train_yolox at the batch that fits;
+    returns its numbers and the run's output directory."""
+    import dataclasses
+    from gdrnpp_bop2022_torch.configs import yolox as yolox_recipe
+    from gdrnpp_bop2022_torch.datasets.bop_data import index_bop_split
+    from gdrnpp_bop2022_torch.datasets.yolox_loader import (YoloxTrainLoader,
+                                                            det_records_from_instances)
+    from gdrnpp_bop2022_torch.engine.checkpoint import CheckpointManager
+    from gdrnpp_bop2022_torch.engine.train_state import create_train_state
+    from gdrnpp_bop2022_torch.engine.yolox_trainer import (build_yolox_optimizer,
+                                                           train_yolox)
+    from gdrnpp_bop2022_torch.models.yolox import build_yolox
+    from gdrnpp_bop2022_torch.models.yolox.head import (decode_outputs, flatten_outputs,
+                                                        simota_match)
+    rc = yolox_recipe("ycbv")
+    check(rc.size == "yolox_x" and rc.norm == "GN" and rc.optimizer == "ranger"
+          and rc.basic_lr_per_img == 1e-3 / 64 and rc.weight_decay == 0.0
+          and rc.grad_clip == 35.0 and rc.ema_decay == 0.9998 and rc.random_size == (14, 26)
+          and rc.multiscale_period == 10 and rc.aug.mosaic_prob == 1.0
+          and rc.aug.mixup_prob == 1.0 and rc.batch_size == 32,
+          "configs.yolox('ycbv') is not the BOP'22 training recipe")
+    meta = scene["meta"]
+    records = det_records_from_instances(index_bop_split(scene["split_dir"], meta))
+    records, held_records = records[:-YX_HELD], records[-YX_HELD:]
+    B, tried = _yx_pick_batch(card, meta.num_classes)
+
+    # a batch of the images held apart (no augmentation) and the initial
+    # weights' losses on it (train_yolox draws the same weights from the seed)
+    loader = YoloxTrainLoader(held_records, B, rc.input_size, seed=SEED + 5, enable_aug=False)
+    try:
+        held = {k: torch.as_tensor(v).cuda() for k, v in next(loader).items()}
+    finally:
+        loader.close()
+    st0 = _yx_state(meta.num_classes, rc.size, rc.norm, SEED, 1e-4)
+    loss0 = _yx_loss(st0.model.eval(), held)
+    del st0
+    torch.cuda.empty_cache()
+
+    out = os.path.join(tmp, "yolox_train")
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_yolox(records, meta.num_classes, out, size=rc.size, input_size=rc.input_size,
+                        batch_size=B, total_iters=YX_STEPS, base_lr=rc.basic_lr_per_img,
+                        weight_decay=rc.weight_decay, optimizer=rc.optimizer,
+                        warmup_iters=YX_WARMUP, grad_clip=rc.grad_clip,
+                        aug=dataclasses.asdict(rc.aug), no_aug_iters=YX_NOAUG,
+                        log_period=YX_LOG_PERIOD, ckpt_period=YX_STEPS, seed=SEED,
+                        random_size=rc.random_size, multiscale_period=rc.multiscale_period,
+                        ema_decay=rc.ema_decay, norm=rc.norm, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(state.step == YX_STEPS and next(state.model.parameters()).is_cuda,
+          "train_yolox did not run on the card")
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics_yolox.json"))]
+    check(all(np.isfinite(r["total_loss"]) for r in rows), f"non-finite losses: {rows}")
+    check("loss_l1" in rows[-1] and "loss_l1" not in rows[0], "the no-aug switch (L1) did not run")
+    sizes = [r["img_size"] for r in rows]
+    loss_ema = _yx_loss(state.model.eval(), held, state.ema_state_dict())
+    state.model.train()
+    ratio = {k: loss_ema[k] / loss0[k] for k in loss0}
+    log(f"[14/14] on a batch of {B} drawn from the {YX_HELD} images held apart, initial -> EMA "
+        "weights: " + "; ".join(f"{k} {loss0[k]:.4f} -> {loss_ema[k]:.4f} ({ratio[k]:.3f}x)"
+                                for k in loss0) + f" (each term must fall below {YX_LOSS_DROP}x)")
+    check(all(np.isfinite(v) and ratio[k] < YX_LOSS_DROP for k, v in loss_ema.items()
+              if k != "total_loss"),
+          f"a held-apart loss did not fall: {loss0} at the initial weights, {loss_ema} at "
+          f"the EMA weights after {YX_STEPS} iterations")
+    check(any(not torch.equal(e, p) for e, p in zip(state.ema, state.model.parameters())),
+          "the EMA weights equal the parameters")
+
+    steps_ms = stats["step"][TRAIN_SKIP:]
+    pct = lambda a, q: float(np.percentile(a, q))            # noqa: E731
+    mean = lambda k: float(np.mean(stats[k][TRAIN_SKIP:]))   # noqa: E731
+    img_s = B * len(steps_ms) / (sum(steps_ms) / 1e3)
+    split = {k: mean(k) for k in ("h2d", "resize", "fwd_bwd", "opt_ema")}
+    wait = stats["host_wait"][TRAIN_SKIP:]
+    # simOTA alone on the held batch's outputs at 640^2
+    with torch.no_grad():
+        flat, grids, st = flatten_outputs(state.model(held["images"].float()), state.model.strides)
+        bd, ol, cl = decode_outputs(flat, grids, st)
+        simota_ms = cuda_ms(lambda: simota_match(bd, ol, cl, grids, st, held["gt_boxes"],
+                                                 held["gt_labels"], held["gt_valid"]),
+                            iters=5, warmup=1)
+    del flat, bd, ol, cl
+    log(f"[14/14] trained configs.yolox('ycbv') (yolox-x {sum(p.numel() for p in state.model.parameters()) / 1e6:.2f} M "
+        f"params, GN, bf16, Ranger {rc.basic_lr_per_img * B:.2e} at batch {B}, warmup "
+        f"{YX_WARMUP}, clip 35, EMA 0.9998, mosaic + mixup + HSV + flip, multiscale "
+        f"{rc.random_size} x 32 every {rc.multiscale_period}, no-aug + L1 for the last "
+        f"{YX_NOAUG}) for {YX_STEPS} iterations through train_yolox in {wall:.1f} s on "
+        f"{len(records)} images: sizes logged {sizes}; total_loss logged every "
+        f"{YX_LOG_PERIOD}: " + " ".join(f"{r['total_loss']:.3f}" for r in rows)
+        + f"  [{card}]")
+    log(f"[14/14] yolox-x training step at batch {B} (CUDA events, steps {TRAIN_SKIP + 1}.."
+        f"{YX_STEPS - 1}): p50 {pct(steps_ms, 50):.2f} ms, p99 {pct(steps_ms, 99):.2f} ms = "
+        f"{img_s:.1f} images/s; per step mean: H2D {split['h2d']:.2f} ms, multiscale resize "
+        f"{split['resize']:.2f} ms, forward + loss + backward {split['fwd_bwd']:.2f} ms (simOTA "
+        f"alone at 640^2: {simota_ms:.2f} ms), optimizer + EMA {split['opt_ema']:.2f} ms; host "
+        f"wait on the loader mean {float(np.mean(wait)):.2f} ms, p99 {pct(wait, 99):.2f} ms; "
+        f"peak max_memory_allocated {peak_gb:.2f} GB  [{card}]")
+
+    # the checkpoint, restored into a fresh state on the card
+    mgr = CheckpointManager(os.path.join(out, "ckpt_yolox"))
+    check(mgr.latest_step() == YX_STEPS, f"checkpoint steps: {mgr.latest_step()}")
+    model = build_yolox(meta.num_classes, rc.size, norm=rc.norm)
+    fresh = create_train_state(model, build_yolox_optimizer(model, 1e-3, "ranger", 0.0))
+    mgr.restore_latest(fresh)
+    same = (fresh.step == YX_STEPS
+            and all(torch.equal(a, b) for a, b in zip(state.model.state_dict().values(),
+                                                      fresh.model.state_dict().values()))
+            and all(torch.equal(a, b) for a, b in zip(state.ema, fresh.ema))
+            and all(torch.equal(v, fresh.optimizer.state[q][k])
+                    for p, q in zip(state.model.parameters(), fresh.model.parameters())
+                    for k, v in state.optimizer.state[p].items()))
+    check(same, "the yolox checkpoint did not restore params, EMA and optimizer state bit "
+          "for bit")
+    log(f"[14/14] checkpoint of iteration {YX_STEPS} "
+        f"({os.path.getsize(mgr.path(YX_STEPS)) / 1e9:.2f} GB) restored on the card: params, "
+        f"EMA and Ranger state bit for bit")
+    del fresh, model
+    prof = _yx_profile(card, state, held, B)
+    del state, held
+    torch.cuda.empty_cache()
+    return {"batch": B, "peak_probe_gb": tried, "step_p50_ms": pct(steps_ms, 50),
+            "step_p99_ms": pct(steps_ms, 99), "images_s": img_s, "split_ms": split,
+            "simota_ms": simota_ms, "host_wait_ms": float(np.mean(wait)), "peak_gb": peak_gb,
+            "loss_ratio": ratio, "profile": prof, "wall_s": wall}, out
+
+
+def _yx_bn(card, scene, tmp):
+    """The BN variant: YX_BN_STEPS iterations through train_yolox(norm="BN"),
+    then one step whose running-statistics update is recomputed in float64
+    from each BN's input."""
+    from gdrnpp_bop2022_torch.datasets.bop_data import index_bop_split
+    from gdrnpp_bop2022_torch.datasets.yolox_loader import (YoloxTrainLoader,
+                                                            det_records_from_instances)
+    from gdrnpp_bop2022_torch.engine.yolox_trainer import make_yolox_train_step, train_yolox
+    from gdrnpp_bop2022_torch.models.yolox.darknet import BatchNormFp32
+    meta = scene["meta"]
+    records = det_records_from_instances(index_bop_split(scene["split_dir"], meta))
+    state = train_yolox(records, meta.num_classes, os.path.join(tmp, "yolox_bn"),
+                        size="yolox_x", input_size=640, batch_size=YX_BN_BATCH,
+                        total_iters=YX_BN_STEPS, base_lr=1e-3 / 64, optimizer="ranger",
+                        weight_decay=0.0, warmup_iters=1, log_period=1, ckpt_period=100,
+                        norm="BN", seed=SEED)
+    bns = [m for m in state.model.modules() if isinstance(m, BatchNormFp32)]
+    moved = sum(not (torch.all(m.running_mean == 0) and torch.all(m.running_var == 1))
+                for m in bns)
+    check(moved == len(bns), f"BN running statistics moved in {moved} of {len(bns)} layers")
+    captured = []
+
+    def hook(mod, inp):
+        x = inp[0].detach().double()
+        captured.append((mod, x.mean((0, 2, 3)), x.var((0, 2, 3), unbiased=False),
+                         mod.running_mean.double().clone(), mod.running_var.double().clone()))
+
+    handles = [m.register_forward_pre_hook(hook) for m in bns]
+    loader = YoloxTrainLoader(records, YX_BN_BATCH, 640, seed=SEED + 6)
+    try:
+        batch = {k: torch.as_tensor(v).cuda() for k, v in next(loader).items()}
+    finally:
+        loader.close()
+    try:
+        make_yolox_train_step()(state, batch)
+    finally:
+        for h in handles:
+            h.remove()
+    err = 0.0
+    for mod, mu, var, rm, rv in captured:
+        for got, want in ((mod.running_mean, 0.97 * rm + 0.03 * mu),
+                          (mod.running_var, 0.97 * rv + 0.03 * var)):
+            err = max(err, float((got.double() - want).abs().max() / want.abs().max()))
+    check(len(captured) == len(bns) and err <= YX_BN_TOL,
+          f"BN running statistics vs a float64 recomputation: {err} > {YX_BN_TOL}")
+    log(f"[14/14] BN variant (yolox-x, norm BN, bf16, batch {YX_BN_BATCH} at 640^2): "
+        f"{YX_BN_STEPS} iterations through train_yolox moved the running statistics of all "
+        f"{len(bns)} BatchNorms; one more step's update equals 0.97 old + 0.03 x the batch's "
+        f"biased mean and variance recomputed in float64 from each BN's input within "
+        f"{err:.2e} of each tensor's largest (limit {YX_BN_TOL})")
+    del state, batch, captured
+    torch.cuda.empty_cache()
+    return err
+
+
+def _yx_parity(card, nc=3):
+    """One fp32 step of a BN YOLOX (dep 0.33, wid 0.125) on the card and on
+    the CPU, the same weights and batch, TF32 off; simOTA on the card vs the
+    CPU on a tie-free batch at 640^2."""
+    from gdrnpp_bop2022_torch.engine.yolox_trainer import make_yolox_train_step
+    from gdrnpp_bop2022_torch.models.yolox.head import (decode_outputs, flatten_outputs,
+                                                        simota_assign)
+    from gdrnpp_bop2022_torch.models.yolox.yolox import YOLOX
+    from gdrnpp_bop2022_torch.engine.train_state import create_train_state
+    from gdrnpp_bop2022_torch.engine.yolox_trainer import (build_yolox_optimizer,
+                                                           init_yolox_weights)
+    batch = _yx_batch(2, 128, nc, np.random.RandomState(SEED + 7), G=8, device="cpu")
+    res = {}
+    with no_tf32():
+        for dev in ("cuda", "cpu"):
+            m = YOLOX(nc, 0.33, 0.125, norm="BN", dtype=torch.float32).to(dev)
+            init_yolox_weights(m, SEED)
+            st = create_train_state(m, build_yolox_optimizer(m, YX_PAR_LR, "ranger", 0.0))
+            metrics = make_yolox_train_step()(st, {k: v.to(dev) for k, v in batch.items()})
+            res[dev] = (float(metrics["total_loss"]),
+                        {k: p.grad.cpu() for k, p in m.named_parameters()},
+                        {k: v.cpu() for k, v in m.state_dict().items()})
+    (lc, gc_, pc), (lh, gh, ph) = res["cuda"], res["cpu"]
+    rel = lambda a, b: float((a.double() - b.double()).abs().max()    # noqa: E731
+                             / b.double().abs().max().clamp_min(1e-30))
+    loss_err = abs(lc - lh) / abs(lh)
+    grad_err = max(rel(gc_[k], gh[k]) for k in gh)
+    # each parameter's difference over its allowance (<= 1 passes)
+    param_err = max(float((pc[k].double() - ph[k].double()).abs().max()
+                          / (YX_PAR_TOL * ph[k].double().abs().max()
+                             + 2 * YX_PAR_LR * (gc_[k].double() - gh[k].double()).abs().max()))
+                    for k in gh)
+    stats_err = max(rel(pc[k], ph[k]) for k in ph if k.endswith(("running_mean", "running_var")))
+    check(np.isfinite(lc) and loss_err <= YX_PAR_LOSS_TOL and grad_err <= YX_PAR_GRAD_TOL
+          and param_err <= 1.0 and stats_err <= YX_PAR_TOL,
+          f"yolox fp32 step card vs CPU: loss {loss_err}, grads {grad_err}, params "
+          f"{param_err}, BN statistics {stats_err}")
+
+    # simOTA: a tie-free batch at 640^2 (continuous raw outputs, distinct GT centres)
+    rs = np.random.RandomState(SEED + 8)
+    outs = []
+    for s in (8, 16, 32):
+        h = 640 // s
+        o = rs.randn(8, h, h, 26).astype(np.float32)
+        o[..., 0:2] = rs.uniform(-0.5, 1.5, (8, h, h, 2))
+        o[..., 2:4] = rs.normal(2.0, 0.8, (8, h, h, 2))
+        outs.append(torch.from_numpy(o))
+    gt = _yx_batch(8, 640, 21, rs, G=60, device="cpu")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        flat, grids, st = flatten_outputs([o.to(dev) for o in outs], (8, 16, 32))
+        bd, ol, cl = decode_outputs(flat, grids, st)
+        got[dev] = [t.cpu() for t in simota_assign(bd, ol, cl, grids, st, gt["gt_boxes"].to(dev),
+                                                   gt["gt_labels"].to(dev),
+                                                   gt["gt_valid"].to(dev))]
+    n_fg = int(got["cpu"][0].sum())
+    iou_err = float((got["cuda"][2] - got["cpu"][2]).abs().max())
+    check(n_fg > 0 and torch.equal(got["cuda"][0], got["cpu"][0])
+          and torch.equal(got["cuda"][1], got["cpu"][1]) and iou_err <= 1e-6,
+          f"simOTA card vs CPU: fg / matched GT differ or IoU {iou_err}")
+    log(f"[14/14] card vs CPU, TF32 off: one fp32 training step of a BN YOLOX (dep 0.33, wid "
+        f"0.125, batch 2 at 128^2, Ranger): loss within {loss_err:.2e} relative (limit "
+        f"{YX_PAR_LOSS_TOL}), gradients within {grad_err:.2e} (limit {YX_PAR_GRAD_TOL}), "
+        f"BN statistics after the step within {stats_err:.2e} (limit {YX_PAR_TOL}) of each "
+        f"tensor's largest, parameters at {param_err:.3f} of their allowance ({YX_PAR_TOL} of "
+        f"their largest + 2 lr max|dgrad|); simOTA at 640^2 (batch 8, 60 padded "
+        f"GTs, {n_fg} foreground anchors): fg and matched GT identical, matched IoU within "
+        f"{iou_err:.1e}  [{card}]")
+    return {"loss": loss_err, "grads": grad_err, "params_of_allowance": param_err,
+            "bn_stats": stats_err,
+            "simota_iou": iou_err}
+
+
+def _two_class_records(root, rs, n=YX_LEARN_IMAGES):
+    """n 160x120 images, each with two shapes (class 0: a larger square on
+    the left, class 1: a smaller one on the right, each rotated, grey on
+    black), as the cubes of tests/synth_utils.py look; DetRecords."""
+    import cv2
+    from gdrnpp_bop2022_torch.datasets.yolox_loader import DetRecord
+    os.makedirs(root, exist_ok=True)
+    recs = []
+    for i in range(n):
+        img = np.zeros((120, 160, 3), np.uint8)
+        boxes = []
+        for cx, half, grey in ((65.6, 7.2, 190), (92.0, 4.0, 178)):
+            c = (cx + rs.uniform(-2.4, 2.4), 60.0 + rs.uniform(-4.8, 4.8))
+            pts = cv2.boxPoints((c, (2 * half, 2 * half), float(rs.uniform(0, 90))))
+            mask = np.zeros((120, 160), np.uint8)
+            cv2.fillPoly(mask, [np.round(pts).astype(np.int32)], 1)
+            img[mask > 0] = grey
+            ys, xs = np.nonzero(mask)
+            boxes.append([xs.min(), ys.min(), xs.max() + 1, ys.max() + 1])
+        path = os.path.join(root, f"{i:06d}.png")
+        cv2.imwrite(path, img)
+        recs.append(DetRecord(path, boxes, [0, 1]))
+    return recs
+
+
+def _yx_learns(card, tmp):
+    """yolox_s at 64^2 learns the two-class split: AP50 of the EMA weights."""
+    from gdrnpp_bop2022_torch.datasets.yolox_loader import YoloxTrainLoader
+    from gdrnpp_bop2022_torch.engine.yolox_trainer import train_yolox
+    from gdrnpp_bop2022_torch.eval.detection_eval import evaluate_yolox_records
+    from gdrnpp_bop2022_torch.models.yolox import build_yolox
+    recs = _two_class_records(os.path.join(tmp, "two_class"), np.random.RandomState(SEED + 9))
+    eval_model = build_yolox(2, "yolox_s", dtype=torch.float32)
+    evals = []
+
+    def eval_fn(weights, it):
+        eval_model.load_state_dict(weights, strict=True)
+        m = evaluate_yolox_records(eval_model, recs, 64, 2, conf_thr=0.05)
+        evals.append((it, m["AP50"]))
+        return m
+
+    t0 = time.perf_counter()
+    state = train_yolox(recs, 2, os.path.join(tmp, "yolox_learn"), size="yolox_s",
+                        input_size=64, batch_size=8, total_iters=YX_LEARN_STEPS,
+                        base_lr=0.02 / 64, no_aug_iters=10_000, multiscale_range=1,
+                        log_period=50, ckpt_period=100, eval_fn=eval_fn, eval_period=100,
+                        seed=0, loader=YoloxTrainLoader(recs, 8, 64, max_gt=16, seed=0))
+    wall = time.perf_counter() - t0
+    ap50 = max(a for _, a in evals)
+    check(state.step == YX_LEARN_STEPS and ap50 >= YX_LEARN_AP50,
+          f"yolox_s on the two-class split: AP50 {evals} (need {YX_LEARN_AP50})")
+    log(f"[14/14] yolox_s (GN, bf16, SGD 0.02/64 per image, batch 8 at 64^2, L1 and clean "
+        f"images throughout, multiscale +-1) learns {len(recs)} two-class images in "
+        f"{YX_LEARN_STEPS} iterations ({wall:.1f} s): AP50 of the EMA weights "
+        + ", ".join(f"{a:.3f} @ {it}" for it, a in evals)
+        + f" (need {YX_LEARN_AP50}; the JAX package's test measured 0.67 @ 150)  [{card}]")
+    del state, eval_model
+    torch.cuda.empty_cache()
+    return evals
+
+
+def phase_detector_train(card, scene, tmp):
+    """Phase 14: the recipe, the BN variant, card vs CPU, learning, and the
+    trained checkpoint served by ``test_yolox --ckpt``."""
+    t0 = time.perf_counter()
+    rec, out = _yx_recipe(card, scene, tmp)
+    bn_err = _yx_bn(card, scene, tmp)
+    par = _yx_parity(card)
+    evals = _yx_learns(card, tmp)
+    root = os.path.dirname(os.path.dirname(scene["models_dir"]))    # holds ycbv/
+    here = os.path.dirname(os.path.abspath(__file__))
+    det_out = os.path.join(tmp, "yolox_trained_dets")
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gdrnpp_bop2022_torch.tools.test_yolox",
+                           "--config", "ycbv", "--root", root, "--ckpt",
+                           os.path.join(out, "ckpt_yolox"), "--out", det_out],
+                          capture_output=True, text=True, timeout=600, cwd=here)
+    cli_s = time.perf_counter() - t1
+    check(proc.returncode == 0, f"test_yolox --ckpt failed: {proc.stderr[-2000:]}")
+    from gdrnpp_bop2022_torch.bop.inout import load_json
+    handoff = load_json(os.path.join(det_out, "yolox_ycbv_test_bboxes.json"))
+    n_rows = sum(len(v) for v in handoff.values())
+    check(len(handoff) > 0 and all(np.isfinite(r["bbox_est"]).all() and 0 < r["score"] <= 1
+                                   for v in handoff.values() for r in v),
+          "test_yolox --ckpt's handoff json")
+    check("WARNING" not in proc.stdout, "test_yolox --ckpt ran on random weights")
+    m_ap = proc.stdout.strip().splitlines()[-1]
+    log(f"[14/14] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv --ckpt "
+        f"<out>/ckpt_yolox (the trained EMA weights, TTA): {len(handoff)} images, {n_rows} rows "
+        f"in the handoff json, {m_ap} on the scene, {cli_s:.1f} s with the process start; "
+        f"phase 14 in {time.perf_counter() - t0:.1f} s  [{card}]")
+    return {"recipe": rec, "bn_update_err": bn_err, "parity": par,
+            "learn_ap50": evals, "serve_rows": n_rows}
 
 
 def _parity(cfg, batch, tag):
@@ -2511,7 +3037,7 @@ def _parity(cfg, batch, tag):
         tol = PARITY_ROT_TOL if k == "rot" else PARITY_REL_TOL * scale
         check(torch.isfinite(gpu[k]).all() and d <= tol,
               f"{tag} card vs CPU {k}: max abs diff {d} > {tol}")
-    log(f"[9/13] fp32 {tag}, 2 ROIs, card (B1 kernel) vs CPU (plain), TF32 "
+    log(f"[9/14] fp32 {tag}, 2 ROIs, card (B1 kernel) vs CPU (plain), TF32 "
         "off: max abs diff " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
 
 
@@ -2627,7 +3153,7 @@ def main():
         scene = make_rgbd_scene(os.path.join(tmp, "ycbv"), np.random.RandomState(SEED + 2))
         bank = ModelBank.from_bop_models_dir(scene["models_dir"])
         check(bank.faces.shape == (21, 4096, 3), f"bank faces {bank.faces.shape}")
-        log(f"[3/13] RGB-D scene and model bank written and loaded in "
+        log(f"[3/14] RGB-D scene and model bank written and loaded in "
             f"{time.perf_counter() - t0:.1f} s (analytic depth, no rendering)")
         b2 = phase_raster(card, scene, bank)
         rb, serve = phase_slice(card, os.path.join(tmp, "rgb"))
@@ -2644,14 +3170,16 @@ def main():
         torch.cuda.empty_cache()
         det = phase_detector(card, scene)
         two = phase_two_stage(card, scene, tmp)
+        det_train = phase_detector_train(card, scene, tmp)
     share = 100.0 * 2 * b2["ms"] / times["p50_ms"]
-    log(f"[5/13] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
+    log(f"[5/14] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
         f"{times['p50_ms']:.2f} ms p50 batch = {share:.2f}%  [{card}]")
     phase_parity(rb, rb_rgbd)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "gdrnpp_bop2022_tpu"))
     check(not bad, f"the port imported {bad[:3]}")
     log("detector and two-stage: " + json.dumps({"detector": det, "two_stage": two}))
+    log("detector training: " + json.dumps(det_train))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "layer_norm", "route": "cuda",

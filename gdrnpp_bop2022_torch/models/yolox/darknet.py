@@ -12,7 +12,11 @@ The norm module is named ``bn`` whichever norm it is:
     as group count, the largest divisor of C that is <= 32 (yolox-x widths
     such as 80 and 160 are not multiples of 32);
   * ``BN``: BatchNorm with eps 1e-3 and momentum 0.03 (the reference's
-    BaseConv, the layout of its released BOP'22 weights), in eval mode.
+    BaseConv, the layout of its released BOP'22 weights) as flax's
+    ``nn.BatchNorm(momentum=0.97, epsilon=1e-3)`` computes it: in eval mode
+    with the running statistics, in training mode with the batch's
+    statistics and the biased variance, for the output and for the running
+    update alike (``BatchNormFp32``).
 Convolutions run in ``dtype`` with fp32 parameters cast at the call; norms
 compute in fp32 and cast back. Stride-2 convolutions pad (p, p) as torch
 does. With ``depthwise=True`` the stride-2 convolutions stay dense, as in the
@@ -45,11 +49,31 @@ class GroupNormFp32(nn.GroupNorm):
 
 
 class BatchNormFp32(nn.BatchNorm2d):
+    """BatchNorm2d's buffers and parameters (a reference ``.pth`` loads),
+    computed as flax's BatchNorm does (``gdrnpp_bop2022_tpu/models/yolox/
+    darknet.py:50``). In training mode the batch's mean and its biased
+    variance E[x^2] - E[x]^2 (clipped at 0), in fp32, normalise the batch and
+    update ``running_* = 0.97 running_* + 0.03 batch`` (torch's own
+    BatchNorm2d would update the variance with the unbiased n / (n - 1)
+    times it)."""
+
     def __init__(self, num_channels: int):
         super().__init__(num_channels, eps=1e-3, momentum=0.03)
 
     def forward(self, x):
-        return super().forward(x.float()).to(x.dtype)
+        x32 = x.float()
+        if not self.training:
+            return F.batch_norm(x32, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps).to(x.dtype)
+        mean = x32.mean((0, 2, 3))
+        var = ((x32 * x32).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 _NORMS = {"GN": GroupNormFp32, "BN": BatchNormFp32}

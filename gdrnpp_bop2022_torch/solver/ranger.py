@@ -299,19 +299,31 @@ class Adam(ChainedOptimizer):
 
 
 class SGD(ChainedOptimizer):
-    """optax.sgd: with momentum, trace = g + momentum * trace. State:
+    """optax.sgd: with momentum, trace = g + momentum * trace and the update
+    -lr trace, or with ``nesterov`` -lr (g + momentum * trace). With
+    ``weight_decay``, first g += weight_decay * p for the parameters of more
+    than one dim (``optax.add_decayed_weights`` under the YOLOX SGD recipe's
+    mask ``ndim > 1``: no decay on norm scales and biases). State:
     momentum_buffer."""
 
-    def __init__(self, params, schedule, momentum: float = 0.0, **chain):
-        self.momentum = momentum
+    def __init__(self, params, schedule, momentum: float = 0.0, nesterov: bool = False,
+                 weight_decay: float = 0.0, **chain):
+        self.momentum, self.nesterov, self.weight_decay = momentum, nesterov, weight_decay
         super().__init__(params, schedule, **chain)
 
     def _updates(self, blocks, params, grads, count, lr):
+        if self.weight_decay:
+            for g, P in zip(grads, params):
+                if P.ndim > 2:              # a stack of parameters of more than one dim
+                    g.add_(P, alpha=self.weight_decay)
         if self.momentum:
             buf = self._state(blocks, params, "momentum_buffer", torch.zeros_like)
             torch._foreach_mul_(buf, self.momentum)
             torch._foreach_add_(buf, grads)
-            grads = buf
+            if self.nesterov:
+                grads = torch._foreach_add(grads, buf, alpha=self.momentum)
+            else:
+                grads = buf
         return torch._foreach_mul(grads, -lr)
 
 

@@ -6,13 +6,17 @@ stage-1 -> stage-2 handoff):
 
     python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv \\
         --root datasets/BOP_DATASETS --weights yolox_x_ycbv.pth --norm BN [--device cpu]
+    python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv \
+        --root datasets/BOP_DATASETS --ckpt output/yolox/ycbv/ckpt_yolox
 
 ``--config`` names a recipe of ``configs.yolox`` (its ``test`` knobs: TTA at
 scales 1, .75, .83, 1.12, 1.25 with conf 0.001, NMS 0.65); without it,
 ``--dataset`` runs the flag defaults (no TTA, conf 0.01). Flags and
 ``--opts key=value`` override. Weights come from a ``.pth`` state dict in
 the reference's names (``--weights``; the released BOP'22 weights are BN),
-or, with ``--allow-random-weights``, from seed 0. The convolutions run in
+from the newest checkpoint that ``train_yolox`` wrote under ``--ckpt`` (its
+EMA weights with the model's BN statistics, as the JAX CLI serves
+``ema_params``), or, with ``--allow-random-weights``, from seed 0. The convolutions run in
 bf16 on the card and in fp32 on the CPU. Images are letterboxed
 on the host and detected ``--batch-size`` at a time (the last batch padded
 with its last image); the first batch runs once untimed first. Writes
@@ -80,15 +84,34 @@ def add_model_args(ap: argparse.ArgumentParser):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 
+def ckpt_ema_state_dict(ckpt_dir: str) -> dict:
+    """The newest ``train_yolox`` checkpoint under ``ckpt_dir`` as a state
+    dict to serve: its EMA parameters with the model's buffers (BN running
+    statistics; the EMA averages parameters only)."""
+    from ..engine.checkpoint import CheckpointManager
+    if not os.path.isdir(ckpt_dir):
+        raise FileNotFoundError(f"no checkpoint directory {ckpt_dir}")
+    mgr = CheckpointManager(ckpt_dir)
+    step = mgr.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    payload = torch.load(mgr.path(step), map_location="cpu", weights_only=False)
+    sd = dict(payload["model"])
+    sd.update(payload["ema"])
+    return sd
+
+
 def load_detector(weights, num_classes: int, size: str, norm: str, device):
-    """build_yolox on ``device`` with the state dict at ``weights``, or, for
-    None, weights drawn from seed 0. Its convolutions run in bf16 on the card
-    (as the JAX package runs them) and in fp32 on the CPU."""
+    """build_yolox on ``device`` with ``weights``: a state dict, the path of
+    one, or, for None, weights drawn from seed 0. Its convolutions run in
+    bf16 on the card (as the JAX package runs them) and in fp32 on the CPU."""
     from ..models.yolox import build_yolox
     from ..utils.weights import seeded_state_dict
     dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
     model = build_yolox(num_classes, size, norm=norm, device=device, dtype=dtype)
-    if weights:
+    if isinstance(weights, dict):
+        sd = weights
+    elif weights:
         sd = load_yolox_weights(weights)
     else:
         print("WARNING: running with RANDOM detector weights", flush=True)
@@ -98,7 +121,10 @@ def load_detector(weights, num_classes: int, size: str, norm: str, device):
 
 
 def require_weights(args, error):
-    if not args.weights and not args.allow_random_weights:
+    ckpt = getattr(args, "ckpt", None)
+    if args.weights and ckpt:
+        error("--weights and --ckpt both given: pass one")
+    if not args.weights and not ckpt and not args.allow_random_weights:
         error("no --weights given: an untrained detector would emit garbage detections. "
               "Pass --weights, or --allow-random-weights for smoke tests.")
 
@@ -158,6 +184,9 @@ def main(argv=None):
                     help="multi-scale + horizontal-flip test-time augmentation, one "
                          "joint NMS (reference det/yolox/models/yolox.py:53)")
     ap.add_argument("--tta-scales", default=None, help="comma-separated TTA scales")
+    ap.add_argument("--ckpt", default=None,
+                    help="a train_yolox checkpoint directory (ckpt_yolox): serve the newest "
+                         "checkpoint's EMA weights")
     add_model_args(ap)
     args = ap.parse_args(argv)
 
@@ -170,7 +199,8 @@ def main(argv=None):
     require_weights(args, ap.error)
     cfg, conf_thr = resolve_eval_cfg(args, error=ap.error)
     meta = get_meta(cfg.dataset)
-    model = load_detector(args.weights, meta.num_classes, cfg.size, cfg.norm, args.device)
+    weights = ckpt_ema_state_dict(args.ckpt) if args.ckpt else args.weights
+    model = load_detector(weights, meta.num_classes, cfg.size, cfg.norm, args.device)
     if cfg.test.tta:
         infer = make_tta_inference(model, scales=tuple(cfg.test.tta_scales), flip=True,
                                    conf_thr=conf_thr, nms_thr=cfg.test.nms_thr)

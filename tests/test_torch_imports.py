@@ -48,5 +48,6 @@ def test_port_imports_no_jax():
               "solver.optimizers", "models.yolox", "models.yolox.darknet",
               "models.yolox.pafpn", "models.yolox.head", "models.yolox.yolox",
               "datasets.yolox_loader", "eval.detection_eval", "tools.test_yolox",
-              "tools.demo_yolox", "tools.demo_gdrn"):
+              "tools.demo_yolox", "tools.demo_gdrn", "engine.yolox_trainer",
+              "tools.train_yolox"):
         assert f"gdrnpp_bop2022_torch.{m}" in out["modules"], m

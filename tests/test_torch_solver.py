@@ -13,7 +13,9 @@
     of state), its state saved with ``torch.save`` after 7 steps, one
     throwaway step taken, the saved state and parameters loaded back, and
     7 more steps, against 14 JAX steps;
-  * Adam, AdamW and SGD with momentum against optax;
+  * Adam, AdamW, SGD with momentum, and SGD with Nesterov momentum after
+    weight decay masked to tensors of more than one dim (the YOLOX branch),
+    against optax;
   * ``build_optimizer``'s chain against the JAX one on a three-module tree
     (backbone / geo head / PnP net): NaN and inf gradients to 0, clipping by
     the global norm, and the geo head's and PnP net's lr_mult;
@@ -176,13 +178,20 @@ def test_ranger_blocks_and_reloaded_state_match_jax():
         _close(st[p]["slow"], jstate.slow[k], f"{k} slow")
 
 
-@pytest.mark.parametrize("name", ["adam", "adamw", "sgd"])
+@pytest.mark.parametrize("name", ["adam", "adamw", "sgd", "sgd_nesterov_wd"])
 def test_adam_adamw_sgd_match_optax(name):
+    """sgd_nesterov_wd: the YOLOX SGD branch, coupled weight decay on the
+    tensors of more than one dim (the bias is left out) then Nesterov."""
     lr = 3e-3
+    ndim_mask = lambda p: jax.tree.map(lambda x: x.ndim > 1, p)     # noqa: E731
     port, tx = {
         "adam": (lambda ps: Adam(ps, lr), optax.adam(lr)),
         "adamw": (lambda ps: Adam(ps, lr, weight_decay=0.05), optax.adamw(lr, weight_decay=0.05)),
         "sgd": (lambda ps: SGD(ps, lr, momentum=0.9), optax.sgd(lr, momentum=0.9)),
+        "sgd_nesterov_wd": (
+            lambda ps: SGD(ps, lr, momentum=0.9, nesterov=True, weight_decay=0.05),
+            optax.chain(optax.add_decayed_weights(0.05, mask=ndim_mask),
+                        optax.sgd(lr, momentum=0.9, nesterov=True))),
     }[name]
     tparams, opt, jparams, _ = _run(port, tx, steps=8, seed=1)
     for k, p in tparams.items():
