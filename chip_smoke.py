@@ -21,8 +21,9 @@ the RGB-D scene; then GDRN training of both BOP'22 recipes as configured
 through ``engine.trainer.train_gdrn`` on a synthetic BOP train split, with
 colour, background and depth augmentation, and in pool mode); then the YOLOX
 detector at the BOP'22 recipe and the two-stage path (images -> detections
--> handoff json -> poses -> scores); and checks the models on the card
-against the same models on the CPU in fp32. It prints its
+-> handoff json -> poses -> scores); then the GDRN model variants (other
+backbones, heads and PnP nets) at full width; and checks the models on the
+card against the same models on the CPU in fp32. It prints its
 wall time. Phases:
 
   1. device: name, versions, power limit; build both kernels (one nvcc
@@ -121,7 +122,19 @@ wall time. Phases:
      against a float64 recomputation of the biased update; one fp32 BN step
      card vs CPU and simOTA card vs CPU; yolox_s learns a two-class split to
      AP50 >= 0.5; ``python -m gdrnpp_bop2022_torch.tools.test_yolox --ckpt``
-     serves the trained EMA weights and writes the handoff json.
+     serves the trained EMA weights and writes the handoff json;
+ 15. the GDRN variants at the flagship's width (21 classes, bf16, batch 64,
+     256^2 input), seeded weights, each served through
+     ``run_gdrn_inference(post_mode="direct")`` on phase 4's RGB scene (V6:
+     the RGB-D scene): V1 resnet34 + single mask (GDR-Net's layout), V2
+     resnest50 + cls2reg over 64 bins + ConvPnPNetCls, V3 convnext_base +
+     the FPN head + SimplePointPnPNet (B1: 40 a forward), V4 resnet18_8s +
+     the conv-only head with ACON + ConvPnPNet with LN (output 32^2), V5
+     cspdarknet + ConvPnPNet without norm, V6 two convnext_base fused by
+     ConvFuseNet (B1: 80 a forward): rows finite and orthonormal, the CSV,
+     forwards and B1 launches counted, serving ROI/s with p50 / p99 a batch,
+     the forward alone by CUDA events, and each against the CPU in fp32 on 2
+     ROIs with TF32 off.
 
 The scene's sensor depth is analytic (ray-ellipsoid), never rendered by the
 kernel under test. Any failure raises (exit code 1). Without a CUDA device
@@ -325,6 +338,31 @@ YX_PAR_LOSS_TOL = 1e-5
 YX_PAR_TOL = 1e-4
 YX_PAR_LR = 1e-3
 YX_PAR_GRAD_TOL = 5e-4
+# phase 15: the GDRN variants at the flagship's width (21 classes, bf16, batch
+# 64, 256^2 input), seeded weights, served on phase 4's RGB scene (V6: the
+# RGB-D scene) through run_gdrn_inference(post_mode="direct"). Each: (tag,
+# what it is, Config() overrides, B1 launches per forward, RGB-D).
+P = "model.pose_net."
+VARIANTS = (
+    ("V1", "resnet34, single mask, ConvPnPNet (GDR-Net's layout)",
+     {P + "backbone.name": "resnet34", P + "geo_head.name": "top_down_mask_xyz_region"}, 0, False),
+    ("V2", "resnest50, single mask, CE_coor 64 bins, cls2reg, ConvPnPNetCls",
+     {P + "backbone.name": "resnest50", P + "geo_head.name": "top_down_mask_xyz_region",
+      P + "loss.xyz_loss_type": "CE_coor", P + "geo_head.xyz_num_bins": 64,
+      P + "name": "gdrn_cls2reg", P + "pnp_net.name": "conv_pnp_net_cls"}, 0, False),
+    ("V3", "convnext_base stages 0-3, FPN head, SimplePointPnPNet",
+     {P + "geo_head.name": "fpn_mask_xyz_region", P + "pnp_net.name": "point_pnp"}, 40, False),
+    ("V4", "resnet18_8s, conv-only head with ACON, ConvPnPNet with LN, output 32^2",
+     {P + "backbone.name": "resnet18_8s", P + "geo_head.name": "conv_mask_xyz_region",
+      P + "geo_head.act": "acon", P + "pnp_net.norm": "LN", P + "output_res": 32}, 0, False),
+    ("V5", "cspdarknet, double mask, ConvPnPNet without norm",
+     {P + "backbone.name": "cspdarknet", P + "pnp_net.norm": "none"}, 0, False),
+    ("V6", "convnext_base x 2, dual stream fused by ConvFuseNet, double mask, ConvPnPNet",
+     {P + "fuse_type": "conv"}, 80, True),
+)
+VARIANT_SEED = SEED + 20
+VARIANT_PROFILE_CALLS = 3
+VARIANT_PROFILE_TOP = 8
 YX_LEARN_IMAGES = 6
 YX_LEARN_STEPS = 200
 YX_LEARN_AP50 = 0.5
@@ -417,9 +455,34 @@ def kernel_ms(fn, names, iters=20, per_call=None):
     return out
 
 
+def profile_calls(fn, n):
+    """torch.profiler over n back-to-back calls of fn() (one call before, to
+    warm up): wall ms a call (host clock, synchronised), device ms a call
+    summed over kernels and copies (user annotations excluded: a CPU op's
+    range repeats its kernels' time), their count a call, and (name, ms a
+    call, count a call) sorted by time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    dev = lambda e: (getattr(e, "self_device_time_total", None)          # noqa: E731
+                     or getattr(e, "self_cuda_time_total", 0.0))
+    ev = [(e.key, dev(e) / 1e3 / n, e.count // n)
+          for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev(e) > 0
+          and not getattr(e, "is_user_annotation", False)]
+    ev.sort(key=lambda e: -e[1])
+    return wall_ms, sum(ms for _, ms, _ in ev), sum(c for *_, c in ev), ev
+
+
 def phase_device():
     name = torch.cuda.get_device_name(0)
-    log(f"[1/14] device: {name} x{torch.cuda.device_count()}  torch "
+    log(f"[1/15] device: {name} x{torch.cuda.device_count()}  torch "
         f"{torch.__version__}  CUDA {torch.version.cuda}  python "
         f"{sys.version.split()[0]}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -433,7 +496,7 @@ def phase_device():
     build_kernel_libraries(["layer_norm", "raster"])    # nvcc, both at once
     for lib in ("layer_norm", "raster"):
         load_kernel_library(lib)
-    log(f"[1/14] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
+    log(f"[1/15] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s")
     return name, card
 
@@ -490,11 +553,11 @@ def ln_times(card):
         for key, v in zip(t, (k, kc, p, lib, libc, cp)):
             t[key] += n * v
         n_bytes += n * (2 * x.numel() * x.element_size() + 2 * C * 4)
-        log(f"[2/14] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
+        log(f"[2/15] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
             f"{kc:.4f} ms, plain {p:.4f} ms, F.layer_norm hot {lib:.4f} ms cold {libc:.4f} ms,"
             f" copy_ cold {cp:.4f} ms")
     t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[2/14] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
+    log(f"[2/15] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
         f"{t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms ({100 * t['bound_ms'] / t['cold_ms']:.1f}% "
         f"of the bound cold); plain {t['plain_ms']:.4f} ms; F.layer_norm hot "
         f"{t['library_ms']:.4f} ms, cold {t['library_cold_ms']:.4f} ms; copy_ of the same "
@@ -522,7 +585,7 @@ def phase_kernels(card):
         want = off == 0 and C * x.element_size() % 16 == 0
         check(vec == want, f"B1 path for C={C} {dt} offset {off}: vector={vec}")
         worst = max(worst, err)
-        log(f"[2/14] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
+        log(f"[2/15] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
             f"{'vector' if vec else 'scalar'} path: max_abs_err={err:.3g}")
         check(ok, f"B1 disagrees with its plain version at rows={rows} C={C} "
                   f"{dt} offset {off}: max abs err {err}")
@@ -769,7 +832,7 @@ def seam_scene(n=8, device="cuda"):
             dev(np.zeros((n, 3), np.float32)), dev(K), 64, 64)
 
 
-def _raster_case(label, verts, faces, R, t, K, H, W, tag="[3/14]"):
+def _raster_case(label, verts, faces, R, t, K, H, W, tag="[3/15]"):
     """The pack kernel vs the torch packing and the cull rule, and the
     kernel (both modes) vs plain (both modes), at one shape; returns the
     worst depth / xyz errors."""
@@ -896,7 +959,7 @@ def phase_raster(card, scene, bank):
     # faces per tile after culling, and the bound, at the flagship
     bd = raster_bound(*flag)
     pt = bd["per_tile"].float()
-    log(f"[3/14] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
+    log(f"[3/15] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
         f"{float(pt.mean()):.1f}, max {int(pt.max())} of {F}; {bd['pairs']:.4e} pixel-face "
         f"pairs inside the boxes vs {bd['all_pairs']:.4e} all pairs")
     # times at the flagship, depth only (the mode depth refinement runs)
@@ -919,14 +982,14 @@ def phase_raster(card, scene, bank):
                                                   max_block=PLAIN_MAX_BLOCK), iters=3,
                    warmup=1)
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"          # noqa: E731
-    log(f"[3/14] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
+    log(f"[3/15] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
         f"{t['cold_ms']:.4f} ms (2 launches; the raster kernel alone {kernel_only_ms:.4f} ms "
         f"by events, {fmt(t['kernel_ms'])} by the profiler, the pack kernel "
         f"{fmt(t['pack_kernel_ms'])}); attribute mode {k_attr_ms:.4f} ms; plain "
         f"{p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms ({bd['pairs']:.4e} tests x "
         f"{RASTER_OPS_PER_TEST} fp32 ops at 67 TFLOP/s, {bd['bound_by']}), all-pairs bound "
         f"{bd['all_pairs_bound_ms']:.4f} ms  [{card}]")
-    log(f"[3/14] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
+    log(f"[3/15] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
         f"kernels {full_ms:.4f} ms of device time per call  [{card}]")
     vsd = [_vsd_shape(card, vsd_shape_input(scene, bank, np.random.RandomState(SEED + 20 + i),
                                             n, bh, bw), n)
@@ -1020,7 +1083,7 @@ def _vsd_shape(card, inp, n):
     bd = raster_bound(*inp)
     pt = bd["per_tile"].float()
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
-    log(f"[3/14] B2 {label} ({faces.shape[1]} faces): == plain version bit for bit "
+    log(f"[3/15] B2 {label} ({faces.shape[1]} faces): == plain version bit for bit "
         f"({int(hit.sum())} px hit); hot {hot:.4f} ms, cold {cold:.4f} ms per call (the "
         f"raster kernel {fmt(k['raster_kernel'])}, pack {fmt(k['pack_faces_kernel'])}; the "
         f"raster kernel on empty boxes, i.e. its box tests alone, {fmt(box_ms)}); faces per "
@@ -1129,11 +1192,11 @@ def phase_slice(card, tmp):
     check(launches == LN_PER_FORWARD * forwards[0],
           f"layer_norm launches {launches} != 40 x {forwards[0]} forwards")
     orth = _check_rows(results, n_rois, tmp, "rgb")
-    log(f"[4/14] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
+    log(f"[4/15] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
         f"batches of {BATCH} + warm-up: {forwards[0]} forwards, layer_norm "
         f"launches {launches} = 40 x {forwards[0]}; rows finite, "
         f"max|R^T R - I| = {orth:.2e}; CSV {len(results)} rows")
-    log(f"[4/14] RGB serving (ROI crop + forward + decode, host clock after "
+    log(f"[4/15] RGB serving (ROI crop + forward + decode, host clock after "
         f"synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -1148,7 +1211,7 @@ def phase_slice(card, tmp):
                               dev(b0["labels"]), dev(extents).float(),
                               input_res=pc.input_res, output_res=pc.output_res)
         fwd_ms = cuda_ms(lambda: model(**rb), iters=10)
-    log(f"[4/14] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[4/15] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s  [{card}]")
     serve = {"model": model, "forwards": forwards, "extents": extents, "kw": kw,
              "batches": lambda: iter_test_batches(by_im, dets, batch_size=BATCH),
@@ -1213,13 +1276,13 @@ def phase_rgbd_slice(card, scene, bank, tmp):
     check(p_launches == r_launches, f"RGB-D: pack launches {p_launches} != raster "
           f"launches {r_launches}")
     orth = _check_rows(results, n_rois, tmp, "rgbd")
-    log(f"[5/14] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
+    log(f"[5/15] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
         f"{bank.faces.shape[0]} meshes x {bank.faces.shape[1]} faces) in {nb} batches of "
         f"{BATCH} + warm-up, post_mode=depth_refine x{iters}: {forwards[0]} forwards, "
         f"layer_norm launches {ln_launches} = 80 x {forwards[0]}, raster launches "
         f"{r_launches} = {iters} x {nb + 1} (and as many pack launches); rows finite, max|R^T R - I| = {orth:.2e}; "
         f"CSV {len(results)} rows")
-    log(f"[5/14] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
+    log(f"[5/15] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
         f"after synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -1248,7 +1311,7 @@ def phase_rgbd_slice(card, scene, bank, tmp):
                     scales, bv, bf, rb["roi_extents"])
         refine_ms = cuda_ms(lambda: depth_refine_batch(*ref_args, iters=iters,
                                                        out_res=pc.output_res), iters=10)
-    log(f"[5/14] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[5/15] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s; depth refine x{iters}: {refine_ms:.3f} ms "
         f"per batch  [{card}]")
     rows2 = {k: v[:2] for k, v in rb.items()}
@@ -1276,7 +1339,7 @@ def phase_refine(card, scene, bank):
           f"depth refine left a z error of {worst_z} m from a {REFINE_OFFSET_M} m offset")
     dt = float((t_k - t_p).abs().max())
     check(dt <= REFINE_T_TOL, f"refined t, B2 vs plain rasterizer: {dt} m")
-    log(f"[6/14] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
+    log(f"[6/15] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
         f"in z, 2 iterations: z error max {worst_z * 1e3:.3f} mm, mean "
         f"{float(z_err.mean()) * 1e3:.3f} mm (limit {0.3 * REFINE_OFFSET_M * 1e3:.1f} mm); "
         f"B2 vs plain rasterizer max |dt| = {dt:.3g} m  [{card}]")
@@ -1331,7 +1394,7 @@ def phase_pnp(card, scene, bank, serve, tmp):
         check(r_err.max() < PNP_R_TOL_DEG and t_err.max() < PNP_T_TOL_M,
               f"{name} from perfect dense outputs: R error {r_err.max()} deg, t error "
               f"{t_err.max()} m")
-        log(f"[7/14] {name} recovers {n} known poses from B2-rendered XYZ / mask / 2D coords "
+        log(f"[7/15] {name} recovers {n} known poses from B2-rendered XYZ / mask / 2D coords "
             f"at {res}x{res}: R error max {r_err.max():.4f} deg, t error max "
             f"{t_err.max() * 1e3:.3f} mm (limits {PNP_R_TOL_DEG} deg, "
             f"{PNP_T_TOL_M * 1e3:.0f} mm); {ms:.3f} ms per batch of {n}  [{card}]")
@@ -1368,7 +1431,7 @@ def phase_pnp(card, scene, bank, serve, tmp):
             post_ms = cuda_ms(post[mode], iters=5, warmup=1)
         times[mode] = {"post_ms": post_ms, "p50_ms": stats["p50_ms"],
                        "rois_per_sec": stats["rois_per_sec"], "launches": launches}
-        log(f"[7/14] RGB post_mode={mode}: served {n_rois} ROIs in {nb} batches of {BATCH} + "
+        log(f"[7/15] RGB post_mode={mode}: served {n_rois} ROIs in {nb} batches of {BATCH} + "
             f"warm-up, layer_norm launches {launches} = 40 x {forwards[0]}; rows finite, "
             f"max|R^T R - I| = {orth:.2e}; {stats['rois_per_sec']:.1f} ROI/s, p50 "
             f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch; the PnP step "
@@ -1447,7 +1510,7 @@ def phase_score(card, scene, bank, tmp):
     check(all(s_gt[k] == 1.0 for k in ar_keys),
           f"GT poses as estimates: {({k: s_gt[k] for k in ar_keys})}")
     sec = ", ".join(f"{k} {v:.3f} s" for k, v in stats["seconds"].items())
-    log(f"[8/14] scoring GT poses as estimates ({len(gts)} GT, {n_vis} at visib >= 0.1, "
+    log(f"[8/15] scoring GT poses as estimates ({len(gts)} GT, {n_vis} at visib >= 0.1, "
         f"{stats['n_targets']} targets, {stats['n_pairs']} pairs) on the card, "
         f"vsd_mode=full: AR = AR_vsd = AR_mssd = AR_mspd = 1.0; VSD pairs per render "
         f"{stats['vsd_pairs']}; {launches} B2 calls; {sec}; "
@@ -1475,7 +1538,7 @@ def phase_score(card, scene, bank, tmp):
               f"ladder {name}: card vs CPU gap {gap} on image {cpu_im}")
         ladder.append({"rung": name, **{k: s_b2[k] for k in ar_keys},
                        "seconds": st["seconds"]["total"]})
-        log(f"[8/14] ladder {name}: " + " ".join(f"{k}={s_b2[k]:.4f}" for k in ar_keys)
+        log(f"[8/15] ladder {name}: " + " ".join(f"{k}={s_b2[k]:.4f}" for k in ar_keys)
             + f" (B2 == plain rasterizer on the card, every key; image {cpu_im}'s "
             f"{len(sub)} GT on the card vs the CPU: max gap {gap:.2e}); "
             f"{st['seconds']['total']:.3f} s, {st['targets_per_s']:.1f} targets/s; with the "
@@ -1514,7 +1577,7 @@ def phase_score(card, scene, bank, tmp):
             n_fit += len(m)
             n_eq += int((diff == 0).sum())
             worst = max(worst, float((diff / share).max()))
-    log(f"[8/14] bbox VSD vs full-image VSD on the card, {n_fit} pairs whose plan fits a "
+    log(f"[8/15] bbox VSD vs full-image VSD on the card, {n_fit} pairs whose plan fits a "
         f"bucket (of {len(gts)}; ladder rung {LADDER[-1][0]}): {n_eq} equal, the rest within "
         f"one pixel's share of their union (worst {worst:.2f} of it): the window's principal "
         f"point, shifted by the integer origin, rounds u by <= 1 ulp  [{card}]")
@@ -1530,7 +1593,7 @@ def phase_score(card, scene, bank, tmp):
     check(all(k in cli and np.isfinite(cli[k]) and 0.0 <= cli[k] <= 1.0 for k in ar_keys)
           and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in cli.values()),
           f"score_csv CLI scores {cli}")
-    log(f"[8/14] python -m gdrnpp_bop2022_torch.tools.score_csv on the served RGB-D CSV: "
+    log(f"[8/15] python -m gdrnpp_bop2022_torch.tools.score_csv on the served RGB-D CSV: "
         + " ".join(f"{k}={cli[k]:.4f}" for k in ar_keys)
         + f", {len(cli)} keys all finite in [0, 1]; {time.perf_counter() - t0:.1f} s "
         f"with the process start  [{card}]")
@@ -1609,13 +1672,13 @@ def ln_backward_times(card):
             t[key] += n * v
         n_bytes += n * (3 * x.numel() * 2 + 2 * rows * 4 + 3 * C * 4)
         fwd_bytes += n * (2 * x.numel() * 2 + 2 * rows * 4 + 2 * C * 4)
-        log(f"[10/14] B1 backward rows={rows} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms "
+        log(f"[10/15] B1 backward rows={rows} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms "
             f"cold {kc:.4f} ms, plain {p:.4f} ms, native_layer_norm_backward hot {lib:.4f} "
             f"ms, copy_ of the same bytes cold {cp:.4f} ms; forward with statistics cold "
             f"{fs:.4f} ms")
     t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
     t["fwd_stats_bound_ms"] = fwd_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[10/14] B1 backward per training step at batch {TRAIN_BATCH} (40 LayerNorms, "
+    log(f"[10/15] B1 backward per training step at batch {TRAIN_BATCH} (40 LayerNorms, "
         f"bf16): kernel hot {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms "
         f"({100 * t['bound_ms'] / t['cold_ms']:.1f}% of the bound cold); plain "
         f"{t['plain_ms']:.4f} ms; native_layer_norm_backward hot {t['library_ms']:.4f} ms; "
@@ -1640,7 +1703,7 @@ def phase_ln_backward(card):
         x = torch.empty(rows * C + off, dtype=dt, device="cuda")[off:].view(rows, C)
         vec = _vector_path(x, x, torch.empty(C, device="cuda"))
         worst = max(worst, err)
-        log(f"[10/14] B1 backward rows={rows} C={C} {str(dt)[6:]} offset={off} "
+        log(f"[10/15] B1 backward rows={rows} C={C} {str(dt)[6:]} offset={off} "
             f"{'vector' if vec else 'scalar'} path: dx max_abs_err={err:.3g}, dweight/dbias "
             f"max err / sum|terms| = {rel:.3g}")
         check(ok, f"B1 backward disagrees with its plain version at rows={rows} C={C} {dt} "
@@ -1766,7 +1829,7 @@ def _aug_check(card, cfg, records, meta, bg_paths):
     check(bg_exact and err <= AUG_TOL and 0 < float(gate.sum()) < TRAIN_BATCH,
           f"augmentation card vs CPU: background exact {bg_exact}, colour max err {err}")
     ms = cuda_ms(lambda: augment(), iters=5, warmup=1)
-    log(f"[10/14] background replacement (p {inp.change_bg_prob}, {len(bg_paths)} images) and "
+    log(f"[10/15] background replacement (p {inp.change_bg_prob}, {len(bg_paths)} images) and "
         f"{aug_type} colour augmentation (p {inp.color_aug.prob}) of a training batch "
         f"({TRAIN_BATCH} x 480x640) on the card vs their plain versions on the CPU, same "
         f"draws, first {n} images: background bit for bit ({int(gate.sum())} of "
@@ -1794,7 +1857,7 @@ def _train_b2(card, records, bank, meta):
            dev("gt_rots"), dev("gt_transes"),
            centered_crop_K(dev("Ks"), dev("centers"), dev("scales"), 64), 64, 64)
     F = inp[1].shape[1]
-    err = _raster_case(f"training batch B={TRAIN_BATCH} 64x64 F={F}", *inp, tag="[10/14]")
+    err = _raster_case(f"training batch B={TRAIN_BATCH} 64x64 F={F}", *inp, tag="[10/15]")
     call = lambda: render_depth_xyz_cuda(*inp)                      # noqa: E731
     bd = raster_bound(*inp)
     # hot by the profiler: events around back-to-back calls of ~40 us time
@@ -1803,7 +1866,7 @@ def _train_b2(card, records, bank, meta):
          "plain_ms": cuda_ms(lambda: render_depth_xyz_batch(*inp, max_block=PLAIN_MAX_BLOCK),
                              iters=3, warmup=1),
          "bound_ms": bd["bound_ms"], "max_abs_err": err, "faces": F}
-    log(f"[10/14] B2 attribute mode at the training batch ({TRAIN_BATCH} ROIs x 64^2 x {F} "
+    log(f"[10/15] B2 attribute mode at the training batch ({TRAIN_BATCH} ROIs x 64^2 x {F} "
         f"faces, decimated): hot {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({bd['pairs']:.4e} pixel-face "
         f"pairs in the boxes, {bd['bound_by']}); faces per tile mean "
@@ -1811,7 +1874,7 @@ def _train_b2(card, records, bank, meta):
     return t
 
 
-def _train_parity(card, records, bank, meta, over=None, tag="[10/14]"):
+def _train_parity(card, records, bank, meta, over=None, tag="[10/15]"):
     """One fp32 step of the tiny config (with ``over``: the dual stream) on
     the card and on the CPU from the same weights and batch (built once on
     the CPU): losses, grads and the params after the step."""
@@ -1888,12 +1951,11 @@ def _train_parity(card, records, bank, meta, over=None, tag="[10/14]"):
         f"{par_err:.2e} (limit {par_tol})")
 
 
-def _train_profile(card, cfg, state, records, bank, meta, bg_paths, tag="[10/14]"):
+def _train_profile(card, cfg, state, records, bank, meta, bg_paths, tag="[10/15]"):
     """Where a training step's device time goes: torch.profiler over
     TRAIN_PROFILE_STEPS steps (host prep of one loader batch included, with
     its augmentations, the loader's wait not): kernel time by name, and the
     device's busy share of the steps' wall time."""
-    from torch.profiler import ProfilerActivity, profile
     from gdrnpp_bop2022_torch.datasets.train_loader import GdrnTrainLoader
     from gdrnpp_bop2022_torch.engine.train_step import make_train_step
     from gdrnpp_bop2022_torch.engine.trainer import (device_bank, make_generators,
@@ -1910,29 +1972,13 @@ def _train_profile(card, cfg, state, records, bank, meta, bg_paths, tag="[10/14]
     step = make_train_step(cfg, bnk["sym_bank"], bnk["sym_mask"])
     gens = make_generators(SEED + 3, "cuda")
     drop = DropMasks(gen=gens["dropout"])
-    step(state, prep_train_batch(hb, bnk, cfg, "cuda", gens=gens), drop=drop)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_PROFILE_STEPS):
-            step(state, prep_train_batch(hb, bnk, cfg, "cuda", gens=gens), drop=drop)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILE_STEPS
-    from torch.autograd import DeviceType
-    dev = lambda e: (getattr(e, "self_device_time_total", None)          # noqa: E731
-                     or getattr(e, "self_cuda_time_total", 0.0))
-    # device events only, without user annotations (the optimizer's
-    # record_function range spans its kernels; a CPU op's entry repeats its
-    # kernels' time): kernels and copies
-    ev = [(e.key, dev(e) / 1e3 / TRAIN_PROFILE_STEPS, e.count // TRAIN_PROFILE_STEPS)
-          for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev(e) > 0
-          and not getattr(e, "is_user_annotation", False)]
-    busy = sum(ms for _, ms, _ in ev)
-    ev.sort(key=lambda e: -e[1])
+    wall_ms, busy, n_k, ev = profile_calls(
+        lambda: step(state, prep_train_batch(hb, bnk, cfg, "cuda", gens=gens), drop=drop),
+        TRAIN_PROFILE_STEPS)
     log(f"{tag} profiled training step at batch {TRAIN_BATCH} ({TRAIN_PROFILE_STEPS} steps, "
         f"host prep and augmentations included): {wall_ms:.2f} ms wall, {busy:.2f} ms of "
         f"device time "
-        f"({100 * busy / wall_ms:.1f}% busy), {sum(c for *_, c in ev)} kernels and copies; "
+        f"({100 * busy / wall_ms:.1f}% busy), {n_k} kernels and copies; "
         f"top (ms per step, count): " + "; ".join(
             f"{k[:70]} {ms:.2f} ({c})" for k, ms, c in ev[:TRAIN_PROFILE_TOP]) + f"  [{card}]")
     return {"wall_ms": wall_ms, "busy_ms": busy,
@@ -2136,7 +2182,7 @@ def phase_train(card, scene, tmp):
     records = records_for(cfg, meta, cfg.datasets.train)
     check(bank.faces.shape[1] <= pc.gt_max_faces and len(records) >= TRAIN_BATCH,
           f"bank faces {bank.faces.shape}, {len(records)} records")
-    log(f"[10/14] train split: {TRAIN_IMAGES} 480x640 images x {DETS_PER_IMAGE} ellipsoids, "
+    log(f"[10/15] train split: {TRAIN_IMAGES} 480x640 images x {DETS_PER_IMAGE} ellipsoids, "
         f"analytic depth, mask/ and mask_visib/ PNGs from the analytic hits, {len(records)} "
         f"records at visib >= {cfg.datasets.filter_visib_thr}; {len(bg_paths)} 640x480 "
         f"backgrounds; bank decimated from 4096 to {bank.faces.shape[1]} faces "
@@ -2146,7 +2192,7 @@ def phase_train(card, scene, tmp):
     aug = _aug_check(card, cfg, records, meta, bg_paths)
     ctx = {"meta": meta, "records": records, "bank": bank, "bg_paths": bg_paths,
            "common": common, "tmp": tmp}
-    run = _train_recipe(card, cfg, ctx, TRAIN_STEPS, TRAIN_LOSS_DROP, "[10/14]",
+    run = _train_recipe(card, cfg, ctx, TRAIN_STEPS, TRAIN_LOSS_DROP, "[10/15]",
                         LN_PER_FORWARD)
     with no_tf32():
         _train_parity(card, records, bank, meta)
@@ -2176,14 +2222,14 @@ def phase_train_rgbd(card, ctx):
         err, rel, ok = _ln_bwd_case(TRAIN_BATCH * r, C, torch.bfloat16, g)
         check(ok, f"B1 backward at ({TRAIN_BATCH * r}, {C}) bf16: dx err {err}, rel {rel}")
         worst = max(worst, err)
-    log(f"[11/14] B1 backward vs plain at the dual stream's shapes (both backbones: "
+    log(f"[11/15] B1 backward vs plain at the dual stream's shapes (both backbones: "
         f"{', '.join(f'({TRAIN_BATCH * r}, {C})' for r, C, _ in LN_SHAPES)}, bf16): dx max "
         f"abs err {worst:.3e}, within one bf16 ulp + 1e-5; dweight / dbias within "
         f"{LN_BWD_REL_TOL} of the sum of their terms")
-    run = _train_recipe(card, cfg, ctx, TRAIN_RGBD_STEPS, TRAIN_RGBD_LOSS_DROP, "[11/14]",
+    run = _train_recipe(card, cfg, ctx, TRAIN_RGBD_STEPS, TRAIN_RGBD_LOSS_DROP, "[11/15]",
                         2 * LN_PER_FORWARD)
     with no_tf32():
-        _train_parity(card, ctx["records"], ctx["bank"], ctx["meta"], over=DSTREAM, tag="[11/14]")
+        _train_parity(card, ctx["records"], ctx["bank"], ctx["meta"], over=DSTREAM, tag="[11/15]")
     return dict(run, ln_bwd_err=worst)
 
 
@@ -2220,7 +2266,7 @@ def phase_pool(card, ctx):
     finally:
         host.close()
         pooled.close()
-    log(f"[10/14] pool mode: {POOL_BATCHES} training batches from frames kept on the card "
+    log(f"[10/15] pool mode: {POOL_BATCHES} training batches from frames kept on the card "
         f"({pools.nbytes / 1e9:.2f} GB: {POOL_FRAMES} RGB, {2 * POOL_FRAMES} mask, "
         f"{cfg.train.device_pool_bg_frames} background slots; uploads on a side stream) equal "
         f"the host batches of the same seed and draws bit for bit (augmented crops, masks, "
@@ -2231,7 +2277,7 @@ def phase_pool(card, ctx):
     torch.cuda.synchronize()
     check(state.step == POOL_STEPS, "pool-mode training did not run")
     steps_ms = stats["step"][1:]
-    log(f"[10/14] pool-mode training (train.device_pool_frames={POOL_FRAMES}) for "
+    log(f"[10/15] pool-mode training (train.device_pool_frames={POOL_FRAMES}) for "
         f"{POOL_STEPS} steps: step mean {float(np.mean(steps_ms)):.2f} ms (steps 2.."
         f"{POOL_STEPS - 1}), H2D + pool gathers {float(np.mean(stats['h2d'][1:])):.2f} ms, host "
         f"wait {float(np.mean(stats['host_wait'][1:])):.2f} ms; pools {stats['pool']}  "
@@ -2356,7 +2402,7 @@ def phase_detector(card, scene):
                     meta.num_classes)
     check(abs(m_gt["mAP"] - 100 / 101) < 1e-9 and abs(m_gt["AP50"] - 100 / 101) < 1e-9,
           f"GT boxes as detections: {m_gt}")
-    log(f"[12/14] {len(keys)} images letterboxed to {rc.input_size}^2 in batches of "
+    log(f"[12/15] {len(keys)} images letterboxed to {rc.input_size}^2 in batches of "
         f"{DET_BATCH}; GT boxes as detections: mAP = AP50 = {m_gt['mAP']:.6f} (100/101, the "
         f"top of coco_map's 101-point interpolation)")
     res, models = {}, {}
@@ -2411,7 +2457,7 @@ def phase_detector(card, scene):
         with torch.inference_mode():
             t["launches_plain"] = _launches(lambda: plain(x))
             t["launches_tta"] = _launches(lambda: tta(x))
-        log(f"[12/14] yolox-x {norm} ({t['params'] / 1e6:.2f} M params, bf16, batch {DET_BATCH} at "
+        log(f"[12/15] yolox-x {norm} ({t['params'] / 1e6:.2f} M params, bf16, batch {DET_BATCH} at "
             f"640^2): forward {t['forward_ms']:.2f} ms; plain detection (forward + decode + "
             f"NMS, conf {DET_CONF_PLAIN}) {t['plain_ms']:.2f} ms = {t['plain_img_s']:.1f} "
             f"images/s, NMS {t['nms_plain_ms']:.3f} ms ({100 * t['nms_share_plain']:.1f}%), "
@@ -2421,7 +2467,7 @@ def phase_detector(card, scene):
             f"{t['tta_img_s']:.1f} images/s, NMS {t['nms_tta_ms']:.3f} ms "
             f"({100 * t['nms_share_tta']:.2f}%), {t['launches_tta']} kernels and copies a "
             f"batch, peak {t['peak_gb']:.2f} GB (CUDA events)  [{card}]")
-        log(f"[12/14] {norm}: the card's NMS == a numpy greedy NMS on the same raw rows, every "
+        log(f"[12/15] {norm}: the card's NMS == a numpy greedy NMS on the same raw rows, every "
             f"image (kept {t['kept_plain']} plain, {t['kept_tta']} under TTA; scores vs "
             f"numpy's decode {t['decode_err']:.1e}); random weights score mAP "
             f"{t['map_random']:.4f} on the scene's GT boxes")
@@ -2444,7 +2490,7 @@ def phase_detector(card, scene):
             check(errs[norm] <= DET_PARITY_TOL and all(torch.isfinite(o).all()
                                                        for o in outs["cuda"]),
                   f"yolox-x {norm} fp32 card vs CPU: {errs[norm]} > {DET_PARITY_TOL}")
-    log(f"[12/14] yolox-x fp32 card vs CPU on 2 images, TF32 off: raw outputs within "
+    log(f"[12/15] yolox-x fp32 card vs CPU on 2 images, TF32 off: raw outputs within "
         f"GN {errs['GN']:.2e} / BN {errs['BN']:.2e} of each level's largest magnitude "
         f"(limit {DET_PARITY_TOL})")
     torch.cuda.empty_cache()
@@ -2483,7 +2529,7 @@ def phase_two_stage(card, scene, tmp):
           and all(np.isfinite(r["bbox_est"]).all() and 0 < r["score"] <= 1
                   for v in handoff.values() for r in v), "test_yolox's handoff json")
     rate = re.search(r"([0-9.]+) images/s in detection", proc.stdout)
-    log(f"[13/14] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv (yolox-x GN "
+    log(f"[13/15] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv (yolox-x GN "
         f"bf16, TTA 5 scales x flip, batch 8, random weights): {N_IMAGES} images, {n_rows} "
         f"rows in the handoff json; {rate.group(1) if rate else '?'} images/s in detection "
         f"(host clock after the copy back), {cli_s:.1f} s for the whole CLI with the process "
@@ -2523,7 +2569,7 @@ def phase_two_stage(card, scene, tmp):
     ar_keys = ("AR", "AR_vsd", "AR_mssd", "AR_mspd")
     check(all(np.isfinite(scores[k]) and 0.0 <= scores[k] <= 1.0 for k in ar_keys),
           f"two-stage scores {scores}")
-    log(f"[13/14] test_gdrn (flagship Config(), bf16) on the handoff json with "
+    log(f"[13/15] test_gdrn (flagship Config(), bf16) on the handoff json with "
         f"model.load_dets_test=True (top 1 per object): {served.group(1)} ROIs in "
         f"{served.group(2)} batches, {served.group(3)} ROI/s, p50 {served.group(4)} ms a batch "
         f"(host clock after synchronize), {gdrn_s:.1f} s in all; {forwards[0]} forwards, "
@@ -2546,7 +2592,7 @@ def phase_two_stage(card, scene, tmp):
     check(drawn == sorted(os.path.basename(p) for p in imgs[:DEMO_IMAGES]),
           f"demo_gdrn drew {drawn}")
     n_obj = sum(int(n) for n in re.findall(r"\((\d+) objects\)", proc.stdout))
-    log(f"[13/14] python -m gdrnpp_bop2022_torch.tools.demo_gdrn with yolox-x inline (GN, bf16, "
+    log(f"[13/15] python -m gdrnpp_bop2022_torch.tools.demo_gdrn with yolox-x inline (GN, bf16, "
         f"conf 0.3) and the flagship GDRN on {DEMO_IMAGES} images: {n_obj} posed objects drawn, "
         f"{demo_s:.1f} s with the process start  [{card}]")
     return {"launches": launches, "forwards": forwards[0], "rois": len(results),
@@ -2608,7 +2654,7 @@ def _yx_pick_batch(card, nc):
         torch.cuda.empty_cache()
         if tried[B] is not None and tried[B] < YX_MEM_GB:
             break
-    log(f"[14/14] yolox-x GN bf16, one training step at {YX_PROBE_SIZE}^2: peak "
+    log(f"[14/15] yolox-x GN bf16, one training step at {YX_PROBE_SIZE}^2: peak "
         "max_memory_allocated " + ", ".join(
             f"batch {b}: " + (f"{gb:.2f} GB" if gb is not None else "out of memory")
             for b, gb in tried.items()) + f" (limit {YX_MEM_GB} GB)  [{card}]")
@@ -2634,27 +2680,10 @@ def _yx_profile(card, state, batch, B):
     """torch.profiler over TRAIN_PROFILE_STEPS steps on a batch already on
     the card (the loader's wait excluded): wall, device busy share, kernels
     and copies a step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from gdrnpp_bop2022_torch.engine.yolox_trainer import make_yolox_train_step
     step = make_yolox_train_step()
-    step(state, batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_PROFILE_STEPS):
-            step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILE_STEPS
-    dev = lambda e: (getattr(e, "self_device_time_total", None)          # noqa: E731
-                     or getattr(e, "self_cuda_time_total", 0.0))
-    ev = [(e.key, dev(e) / 1e3 / TRAIN_PROFILE_STEPS, e.count // TRAIN_PROFILE_STEPS)
-          for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev(e) > 0
-          and not getattr(e, "is_user_annotation", False)]
-    busy = sum(ms for _, ms, _ in ev)
-    ev.sort(key=lambda e: -e[1])
-    n_k = sum(c for *_, c in ev)
-    log(f"[14/14] profiled yolox-x training step at batch {B}, 640^2 ({TRAIN_PROFILE_STEPS} "
+    wall_ms, busy, n_k, ev = profile_calls(lambda: step(state, batch), TRAIN_PROFILE_STEPS)
+    log(f"[14/15] profiled yolox-x training step at batch {B}, 640^2 ({TRAIN_PROFILE_STEPS} "
         f"steps, the batch on the card): {wall_ms:.2f} ms wall, {busy:.2f} ms of device time "
         f"({100 * busy / wall_ms:.1f}% busy), {n_k} kernels and copies; top (ms per step, "
         f"count): " + "; ".join(f"{k[:60]} {ms:.2f} ({c})" for k, ms, c in ev[:TRAIN_PROFILE_TOP])
@@ -2725,7 +2754,7 @@ def _yx_recipe(card, scene, tmp):
     loss_ema = _yx_loss(state.model.eval(), held, state.ema_state_dict())
     state.model.train()
     ratio = {k: loss_ema[k] / loss0[k] for k in loss0}
-    log(f"[14/14] on a batch of {B} drawn from the {YX_HELD} images held apart, initial -> EMA "
+    log(f"[14/15] on a batch of {B} drawn from the {YX_HELD} images held apart, initial -> EMA "
         "weights: " + "; ".join(f"{k} {loss0[k]:.4f} -> {loss_ema[k]:.4f} ({ratio[k]:.3f}x)"
                                 for k in loss0) + f" (each term must fall below {YX_LOSS_DROP}x)")
     check(all(np.isfinite(v) and ratio[k] < YX_LOSS_DROP for k, v in loss_ema.items()
@@ -2749,7 +2778,7 @@ def _yx_recipe(card, scene, tmp):
                                                  held["gt_labels"], held["gt_valid"]),
                             iters=5, warmup=1)
     del flat, bd, ol, cl
-    log(f"[14/14] trained configs.yolox('ycbv') (yolox-x {sum(p.numel() for p in state.model.parameters()) / 1e6:.2f} M "
+    log(f"[14/15] trained configs.yolox('ycbv') (yolox-x {sum(p.numel() for p in state.model.parameters()) / 1e6:.2f} M "
         f"params, GN, bf16, Ranger {rc.basic_lr_per_img * B:.2e} at batch {B}, warmup "
         f"{YX_WARMUP}, clip 35, EMA 0.9998, mosaic + mixup + HSV + flip, multiscale "
         f"{rc.random_size} x 32 every {rc.multiscale_period}, no-aug + L1 for the last "
@@ -2757,7 +2786,7 @@ def _yx_recipe(card, scene, tmp):
         f"{len(records)} images: sizes logged {sizes}; total_loss logged every "
         f"{YX_LOG_PERIOD}: " + " ".join(f"{r['total_loss']:.3f}" for r in rows)
         + f"  [{card}]")
-    log(f"[14/14] yolox-x training step at batch {B} (CUDA events, steps {TRAIN_SKIP + 1}.."
+    log(f"[14/15] yolox-x training step at batch {B} (CUDA events, steps {TRAIN_SKIP + 1}.."
         f"{YX_STEPS - 1}): p50 {pct(steps_ms, 50):.2f} ms, p99 {pct(steps_ms, 99):.2f} ms = "
         f"{img_s:.1f} images/s; per step mean: H2D {split['h2d']:.2f} ms, multiscale resize "
         f"{split['resize']:.2f} ms, forward + loss + backward {split['fwd_bwd']:.2f} ms (simOTA "
@@ -2780,7 +2809,7 @@ def _yx_recipe(card, scene, tmp):
                     for k, v in state.optimizer.state[p].items()))
     check(same, "the yolox checkpoint did not restore params, EMA and optimizer state bit "
           "for bit")
-    log(f"[14/14] checkpoint of iteration {YX_STEPS} "
+    log(f"[14/15] checkpoint of iteration {YX_STEPS} "
         f"({os.path.getsize(mgr.path(YX_STEPS)) / 1e9:.2f} GB) restored on the card: params, "
         f"EMA and Ranger state bit for bit")
     del fresh, model
@@ -2838,7 +2867,7 @@ def _yx_bn(card, scene, tmp):
             err = max(err, float((got.double() - want).abs().max() / want.abs().max()))
     check(len(captured) == len(bns) and err <= YX_BN_TOL,
           f"BN running statistics vs a float64 recomputation: {err} > {YX_BN_TOL}")
-    log(f"[14/14] BN variant (yolox-x, norm BN, bf16, batch {YX_BN_BATCH} at 640^2): "
+    log(f"[14/15] BN variant (yolox-x, norm BN, bf16, batch {YX_BN_BATCH} at 640^2): "
         f"{YX_BN_STEPS} iterations through train_yolox moved the running statistics of all "
         f"{len(bns)} BatchNorms; one more step's update equals 0.97 old + 0.03 x the batch's "
         f"biased mean and variance recomputed in float64 from each BN's input within "
@@ -2908,7 +2937,7 @@ def _yx_parity(card, nc=3):
     check(n_fg > 0 and torch.equal(got["cuda"][0], got["cpu"][0])
           and torch.equal(got["cuda"][1], got["cpu"][1]) and iou_err <= 1e-6,
           f"simOTA card vs CPU: fg / matched GT differ or IoU {iou_err}")
-    log(f"[14/14] card vs CPU, TF32 off: one fp32 training step of a BN YOLOX (dep 0.33, wid "
+    log(f"[14/15] card vs CPU, TF32 off: one fp32 training step of a BN YOLOX (dep 0.33, wid "
         f"0.125, batch 2 at 128^2, Ranger): loss within {loss_err:.2e} relative (limit "
         f"{YX_PAR_LOSS_TOL}), gradients within {grad_err:.2e} (limit {YX_PAR_GRAD_TOL}), "
         f"BN statistics after the step within {stats_err:.2e} (limit {YX_PAR_TOL}) of each "
@@ -2972,7 +3001,7 @@ def _yx_learns(card, tmp):
     ap50 = max(a for _, a in evals)
     check(state.step == YX_LEARN_STEPS and ap50 >= YX_LEARN_AP50,
           f"yolox_s on the two-class split: AP50 {evals} (need {YX_LEARN_AP50})")
-    log(f"[14/14] yolox_s (GN, bf16, SGD 0.02/64 per image, batch 8 at 64^2, L1 and clean "
+    log(f"[14/15] yolox_s (GN, bf16, SGD 0.02/64 per image, batch 8 at 64^2, L1 and clean "
         f"images throughout, multiscale +-1) learns {len(recs)} two-class images in "
         f"{YX_LEARN_STEPS} iterations ({wall:.1f} s): AP50 of the EMA weights "
         + ", ".join(f"{a:.3f} @ {it}" for it, a in evals)
@@ -3008,7 +3037,7 @@ def phase_detector_train(card, scene, tmp):
           "test_yolox --ckpt's handoff json")
     check("WARNING" not in proc.stdout, "test_yolox --ckpt ran on random weights")
     m_ap = proc.stdout.strip().splitlines()[-1]
-    log(f"[14/14] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv --ckpt "
+    log(f"[14/15] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv --ckpt "
         f"<out>/ckpt_yolox (the trained EMA weights, TTA): {len(handoff)} images, {n_rows} rows "
         f"in the handoff json, {m_ap} on the scene, {cli_s:.1f} s with the process start; "
         f"phase 14 in {time.perf_counter() - t0:.1f} s  [{card}]")
@@ -3016,7 +3045,119 @@ def phase_detector_train(card, scene, tmp):
             "learn_ap50": evals, "serve_rows": n_rows}
 
 
-def _parity(cfg, batch, tag):
+def _variant(card, tag, what, over, ln_per_fwd, rgbd, src, i, tmp):
+    """One variant: serve the scene, time the forward, check the card
+    against the CPU in fp32."""
+    from gdrnpp_bop2022_torch.config import Config, replace_cfg
+    from gdrnpp_bop2022_torch.configs import ycbv_convnext_base_rgbd
+    from gdrnpp_bop2022_torch.engine.batching import build_depth_rois, build_test_batch
+    from gdrnpp_bop2022_torch.engine.inference import run_gdrn_inference
+    from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
+    from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm
+    from gdrnpp_bop2022_torch.utils.weights import seeded_state_dict
+
+    cfg = replace_cfg(ycbv_convnext_base_rgbd() if rgbd else Config(), over)
+    pc = cfg.model.pose_net
+    check(pc.num_classes == 21 and pc.input_res == 256 and cfg.model.compute_dtype == "bfloat16",
+          f"{tag}: not at the flagship's width")
+    t0 = time.perf_counter()
+    model = build_gdrn(cfg)
+    check(next(model.parameters()).is_cuda, f"{tag}: build_gdrn did not build on the card")
+    model.load_state_dict(seeded_state_dict(model, VARIANT_SEED + i), strict=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    forwards = [0]
+    model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    kw = dict(input_res=pc.input_res, output_res=pc.output_res,
+              pixel_mean=cfg.model.pixel_mean, pixel_std=cfg.model.pixel_std,
+              post_mode="direct", mask_loss_type=pc.loss.mask_loss_type,
+              with_depth_input=rgbd, bp_depth=cfg.input.bp_depth,
+              coord_2d_type=pc.pnp_net.coord_2d_type)
+    stats = {}
+    layer_norm.launches = 0                       # count this variant only
+    results = run_gdrn_inference(model, src["batches"](), src["extents"], stats=stats, **kw)
+    launches, n_fwd = layer_norm.launches, forwards[0]
+    nb = stats["n_batches"]
+    check(n_fwd == nb + 1, f"{tag}: {n_fwd} forwards for {nb} batches + warm-up")
+    check(launches == ln_per_fwd * n_fwd,
+          f"{tag}: layer_norm launches {launches} != {ln_per_fwd} x {n_fwd} forwards")
+    orth = _check_rows(results, src["n_rois"], tmp, f"variant_{tag}")
+
+    b0 = next(src["batches"]())
+    dev = lambda a: torch.as_tensor(a).cuda()    # noqa: E731
+    with torch.inference_mode():
+        img_idx, Ks = dev(b0["img_idx"]), dev(b0["Ks"])
+        rb = build_test_batch(dev(b0["images"]), img_idx, dev(b0["boxes_xyxy"]), Ks,
+                              dev(b0["labels"]), dev(src["extents"]).float(),
+                              input_res=pc.input_res, output_res=pc.output_res)
+        if rgbd:
+            rb["roi_depth"] = build_depth_rois(dev(b0["depths"]), img_idx, rb["roi_centers"],
+                                               pc.output_res / rb["resize_ratios"], Ks,
+                                               input_res=pc.input_res)
+        fwd_ms = cuda_ms(lambda: model(**rb), iters=10)
+        out = model(**rb)
+        wall_ms, busy_ms, n_k, ev = profile_calls(lambda: model(**rb), VARIANT_PROFILE_CALLS)
+    r = pc.output_res
+    single = pc.geo_head.name != "top_down_doublemask_xyz_region"
+    check(tuple(out["vis_mask"].shape) == (BATCH, r, r) and (out["full_mask"] is None) == single,
+          f"{tag}: vis_mask {tuple(out['vis_mask'].shape)}, full_mask "
+          f"{'None' if out['full_mask'] is None else tuple(out['full_mask'].shape)}")
+    del model
+    torch.cuda.empty_cache()
+    f32 = replace_cfg(cfg, {"model.compute_dtype": "float32"})
+    with no_tf32():
+        errs = _parity(f32, {k: v[:2].float() if v.is_floating_point() else v[:2]
+                             for k, v in rb.items()}, f"{tag} ({what})", "[15/15]")
+    rec = {"what": what, "params_M": n_params / 1e6, "out_res": r, "rois": len(results),
+           "forwards": n_fwd, "b1_launches": launches,
+           "b1_per_forward": launches / n_fwd, "rois_per_sec": stats["rois_per_sec"],
+           "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"], "fwd_ms": fwd_ms,
+           "fwd_rois_per_sec": BATCH / fwd_ms * 1e3, "orth": orth, "parity": errs,
+           "profile": {"wall_ms": wall_ms, "device_ms": busy_ms, "kernels": n_k,
+                       "top": [(k[:60], ms, c) for k, ms, c in ev[:VARIANT_PROFILE_TOP]]},
+           "seconds": time.perf_counter() - t0}
+    log(f"[15/15] {tag} {what}: {n_params / 1e6:.2f} M parameters, output {r}^2; served "
+        f"{len(results)} ROIs in {nb} batches of {BATCH} + warm-up: {n_fwd} forwards, "
+        f"layer_norm launches {launches} = {ln_per_fwd} x {n_fwd}; rows finite, "
+        f"max|R^T R - I| = {orth:.2e}; serving {stats['rois_per_sec']:.1f} ROI/s, p50 "
+        f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch; forward alone "
+        f"{fwd_ms:.3f} ms = {BATCH / fwd_ms * 1e3:.1f} ROI/s (bf16, CUDA events); profiled "
+        f"forward {wall_ms:.2f} ms wall, {busy_ms:.2f} ms of device time "
+        f"({100 * busy_ms / wall_ms:.1f}% busy), {n_k} kernels and copies, top (ms, count): "
+        + "; ".join(f"{k[:60]} {ms:.2f} ({c})" for k, ms, c in ev[:VARIANT_PROFILE_TOP])
+        + f"; {rec['seconds']:.1f} s  [{card}]")
+    return rec
+
+
+def phase_variants(card, scene, bank, tmp):
+    """Phase 15: the six GDRN variants V1-V6 at full width."""
+    from gdrnpp_bop2022_torch.datasets.bop_data import (index_bop_split, load_detections,
+                                                        make_records_by_image)
+    from gdrnpp_bop2022_torch.datasets.test_loader import iter_test_batches
+    t0 = time.perf_counter()
+    # phase 4's RGB scene (the same seed), and the RGB-D scene with its depth
+    meta, split_dir, det_file = _write_scene(os.path.join(tmp, "variants"),
+                                             np.random.RandomState(SEED))
+    by_im = make_records_by_image(index_bop_split(split_dir, meta))
+    dets = load_detections(det_file, meta, top_k_per_obj=1)
+    rgb = {"batches": lambda: iter_test_batches(by_im, dets, batch_size=BATCH),
+           "extents": np.random.RandomState(SEED + 1).uniform(0.05, 0.25, (21, 3)),
+           "n_rois": N_IMAGES * DETS_PER_IMAGE}
+    dmeta = scene["meta"]
+    d_by_im = make_records_by_image(index_bop_split(scene["split_dir"], dmeta))
+    d_dets = load_detections(scene["det_file"], dmeta, top_k_per_obj=1)
+    rgbd = {"batches": lambda: iter_test_batches(d_by_im, d_dets, batch_size=BATCH,
+                                                 with_depth=True,
+                                                 depth_factor=dmeta.depth_factor),
+            "extents": bank.extents, "n_rois": N_IMAGES * DETS_PER_IMAGE}
+    out = {}
+    for i, (tag, what, over, ln_per_fwd, is_rgbd) in enumerate(VARIANTS):
+        out[tag] = _variant(card, tag, what, over, ln_per_fwd, is_rgbd,
+                            rgbd if is_rgbd else rgb, i, tmp)
+    log(f"[15/15] phase 15 (variants V1-V6) in {time.perf_counter() - t0:.1f} s  [{card}]")
+    return out
+
+
+def _parity(cfg, batch, tag, phase="[9/15]"):
     from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
     from gdrnpp_bop2022_torch.utils.weights import seeded_state_dict
     outs = {}
@@ -3031,14 +3172,18 @@ def _parity(cfg, batch, tag):
     errs = {}
     for k in ("rot", "trans", "centroid_rel", "z_rel", "vis_mask", "full_mask",
               "coor_x", "coor_y", "coor_z", "region"):
+        check((k in gpu) == (k in cpu), f"{tag}: {k} is None on one device only")
+        if k not in gpu:        # a single-mask head's full_mask
+            continue
         d = float((gpu[k] - cpu[k]).abs().max())
         scale = max(float(cpu[k].abs().max()), 1.0)
         errs[k] = d
         tol = PARITY_ROT_TOL if k == "rot" else PARITY_REL_TOL * scale
         check(torch.isfinite(gpu[k]).all() and d <= tol,
               f"{tag} card vs CPU {k}: max abs diff {d} > {tol}")
-    log(f"[9/14] fp32 {tag}, 2 ROIs, card (B1 kernel) vs CPU (plain), TF32 "
+    log(f"{phase} fp32 {tag}, 2 ROIs, card (its kernels) vs CPU (plain versions), TF32 "
         "off: max abs diff " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
+    return errs
 
 
 def phase_parity(rb, rb_rgbd):
@@ -3153,7 +3298,7 @@ def main():
         scene = make_rgbd_scene(os.path.join(tmp, "ycbv"), np.random.RandomState(SEED + 2))
         bank = ModelBank.from_bop_models_dir(scene["models_dir"])
         check(bank.faces.shape == (21, 4096, 3), f"bank faces {bank.faces.shape}")
-        log(f"[3/14] RGB-D scene and model bank written and loaded in "
+        log(f"[3/15] RGB-D scene and model bank written and loaded in "
             f"{time.perf_counter() - t0:.1f} s (analytic depth, no rendering)")
         b2 = phase_raster(card, scene, bank)
         rb, serve = phase_slice(card, os.path.join(tmp, "rgb"))
@@ -3171,8 +3316,9 @@ def main():
         det = phase_detector(card, scene)
         two = phase_two_stage(card, scene, tmp)
         det_train = phase_detector_train(card, scene, tmp)
+        variants = phase_variants(card, scene, bank, tmp)
     share = 100.0 * 2 * b2["ms"] / times["p50_ms"]
-    log(f"[5/14] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
+    log(f"[5/15] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
         f"{times['p50_ms']:.2f} ms p50 batch = {share:.2f}%  [{card}]")
     phase_parity(rb, rb_rgbd)
     bad = sorted(m for m in sys.modules
@@ -3180,6 +3326,7 @@ def main():
     check(not bad, f"the port imported {bad[:3]}")
     log("detector and two-stage: " + json.dumps({"detector": det, "two_stage": two}))
     log("detector training: " + json.dumps(det_train))
+    log("variants: " + json.dumps(variants) + f"  [{card}]")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "layer_norm", "route": "cuda",
@@ -3192,7 +3339,8 @@ def main():
                               **{f"rgb_{m}": pnp[m]["launches"] for m in PNP_MODES},
                               "train": train["launches"]["fwd"],
                               "train_rgbd": rgbd["launches"]["fwd"],
-                              "two_stage": two["launches"]}},
+                              "two_stage": two["launches"],
+                              "variants": sum(v["b1_launches"] for v in variants.values())}},
         {"name": "layer_norm_backward", "route": "cuda",
          "source": "gdrnpp_bop2022_torch/csrc/layer_norm.cu",
          "replaces": "gdrnpp_bop2022_tpu/ops/pallas_ln.py:26 (its VJP)",

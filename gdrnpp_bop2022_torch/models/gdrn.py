@@ -1,20 +1,35 @@
-"""GDRN assembly: ConvNeXt -> double-mask geo head -> ConvPnPNet -> pose decode.
+"""GDRN assembly: backbone -> geo head -> PnP net -> pose decode.
 
-Port of ``gdrnpp_bop2022_tpu/models/gdrn.py`` for the served configurations:
-a convnext_{tiny,small,base} backbone, ``top_down_doublemask_xyz_region``
-head and ``conv_pnp_net``, as RGB (``gdrn_double_mask``) or RGB-D
-(``gdrn_dstream_double_mask``: a second ConvNeXt, ``depth_backbone``, over
-the backprojected depth ROI, fused by channel concat or sum). The other
-backbones, heads and PnP nets, ConvFuseNet and cls2reg arrive in later
-slices and raise here. With ``loss.use_mtl`` the model holds one learned
-log-variance per loss term (``log_var_<name>``, scalars).
+Port of ``gdrnpp_bop2022_tpu/models/gdrn.py`` with every variant it builds:
+
+  * backbones: convnext_{tiny,small,base} (its LayerNorms through kernel
+    B1), resnet34/50/101, resnet18_8s / resnet34_8s (dilated, stride 8),
+    resnest50/101 and cspdarknet (YOLOX's CSPDarknet at width and depth 1,
+    stage features 1-3 = dark3-5), each with ``backbone.in_channels`` input
+    channels (6 for early RGB-D fusion);
+  * geo heads: ``top_down_doublemask_xyz_region``,
+    ``top_down_mask_xyz_region``, ``conv_mask_xyz_region`` (at the stride
+    of ``backbone.out_index``) and ``fpn_mask_xyz_region`` (stage features
+    0-3); the single-mask heads return ``full_mask`` None;
+  * PnP nets: ``conv_pnp_net``, ``conv_pnp_net_cls`` (class-aware FCs, given
+    the labels), ``point_pnp`` / ``simple_point_pnp`` (SimplePointPnPNet with
+    the global max pool, as the JAX GDRN builds it);
+  * ``gdrn_cls2reg``: binned (CE) coordinates decoded for the PnP net by
+    ``soft_argmax`` over every bin, the background bin included;
+  * the dual stream (``gdrn_dstream_*``): a second backbone, ``depth_backbone``,
+    over the depth ROI, fused by concat, sum or ConvFuseNet
+    (``fuse_type="conv"``).
+
+Unknown backbone, head or PnP names raise ``ValueError``. With
+``loss.use_mtl`` the model holds one learned log-variance per loss term
+(``log_var_<name>``, scalars).
 
 The public interface keeps the JAX package's layout: ``forward`` takes the
 batch dict of ``engine.batching.build_test_batch`` (roi_img (B, H, W, 3),
 roi_coord_2d (B, h, w, 2), ...) and returns the dense maps channel-last,
-so both packages compare like with like. Inside, tensors are NCHW in
-channels_last memory. Parameter names are the reference's torch names
-(``backbone.*``, ``geo_head_net.*``, ``pnp_net.*``).
+so both packages compare like with like. Inside, tensors are NCHW (channels_last
+memory for ConvNeXt). Parameter names are the reference's torch names
+(``backbone.*``, ``geo_head_net.*``, ``pnp_net.*``, ``fuse_net.*``).
 """
 
 from __future__ import annotations
@@ -29,19 +44,67 @@ from ..geometry.rotations import quat_to_mat, rot6d_to_mat
 from ..geometry.se3 import (pose_from_centroid_z_abs, pose_from_centroid_z_rel,
                             pose_from_trans)
 from .backbones.convnext import convnext_base, convnext_small, convnext_tiny
-from .heads.conv_pnp_net import ConvPnPNet
-from .heads.top_down_head import TopDownDoubleMaskXyzRegionHead
-from .layers import DropMasks
+from .backbones.resnest import resnest50, resnest101
+from .backbones.resnet import resnet18_8s, resnet34, resnet34_8s, resnet50, resnet101
+from .heads.conv_pnp_net import ConvPnPNet, ConvPnPNetCls
+from .heads.point_pnp_net import ConvFuseNet, SimplePointPnPNet
+from .heads.top_down_head import (ConvMaskXyzRegionHead, FPNMaskXyzRegionHead,
+                                  TopDownDoubleMaskXyzRegionHead, TopDownMaskXyzRegionHead)
+from .layers import DropMasks, soft_argmax
+from .yolox.darknet import CSPDarknet
 
 # the loss terms use_mtl weights, each as loss_<name>
 MTL_NAMES = ("mask", "mask_full", "coor_x", "coor_y", "coor_z", "region", "PM_R", "PM_RT",
              "PM_xy", "PM_z", "PM_xy_noP", "PM_z_noP", "PM_T", "PM_T_noP", "centroid", "z",
              "trans_xy", "trans_z", "trans_LPnP", "rot", "bind")
 
-_BACKBONES = {"convnext_tiny": (convnext_tiny, 768),
-              "convnext_small": (convnext_small, 768),
-              "convnext_base": (convnext_base, 1024)}
+
+class CSPDarknetBackbone(CSPDarknet):
+    """YOLOX's CSPDarknet (GN, width and depth 1) as a GDRN backbone: stage
+    features 1, 2, 3 are dark3, dark4, dark5 (strides 8, 16, 32); its Focus
+    stem takes the ROI as it is."""
+
+    def __init__(self, out_indices=(3,), in_chans: int = 3, dtype=torch.bfloat16):
+        if any(i not in (1, 2, 3) for i in out_indices):
+            raise ValueError(f"cspdarknet has stage features 1-3, not {out_indices}")
+        super().__init__(1.0, 1.0, dtype=dtype, in_chans=in_chans)
+        self.out_indices = tuple(out_indices)
+
+    def forward(self, x, drop: Optional[DropMasks] = None):
+        feats = super().forward(x)
+        out = [feats[i - 1] for i in self.out_indices]
+        return out if len(out) > 1 else out[0]
+
+
+# name -> (constructor, width of stage features 0-3)
+_BACKBONES = {"convnext_tiny": (convnext_tiny, (96, 192, 384, 768)),
+              "convnext_small": (convnext_small, (96, 192, 384, 768)),
+              "convnext_base": (convnext_base, (128, 256, 512, 1024)),
+              "resnet34": (resnet34, (64, 128, 256, 512)),
+              "resnet50": (resnet50, (256, 512, 1024, 2048)),
+              "resnet101": (resnet101, (256, 512, 1024, 2048)),
+              # pvnet-heritage dilated stride-8 nets: pair with the conv-only
+              # geo head and output_res = input_res // 8
+              "resnet18_8s": (resnet18_8s, (64, 128, 256, 512)),
+              "resnet34_8s": (resnet34_8s, (64, 128, 256, 512)),
+              "resnest50": (resnest50, (256, 512, 1024, 2048)),
+              "resnest101": (resnest101, (256, 512, 1024, 2048)),
+              "cspdarknet": (CSPDarknetBackbone, (None, 256, 512, 1024))}
+_HEADS = {"top_down_doublemask_xyz_region": TopDownDoubleMaskXyzRegionHead,
+          "top_down_mask_xyz_region": TopDownMaskXyzRegionHead,
+          "conv_mask_xyz_region": ConvMaskXyzRegionHead,
+          "fpn_mask_xyz_region": FPNMaskXyzRegionHead}
+_PNP_NETS = ("conv_pnp_net", "conv_pnp_net_cls", "point_pnp", "simple_point_pnp")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _build_backbone(bb, out_indices, in_chans: int, dtype):
+    if bb.name not in _BACKBONES:
+        raise ValueError(f"Unknown backbone: {bb.name}")
+    build, widths = _BACKBONES[bb.name]
+    kw = {"gelu_exact": bb.gelu_exact} if "convnext" in bb.name else {}
+    model = build(out_indices=out_indices, in_chans=in_chans, dtype=dtype, **kw)
+    return model, [widths[i] for i in out_indices]
 
 
 def xyz_mask_region_out_dims(cfg: PoseNetConfig) -> tuple[int, int, int]:
@@ -82,13 +145,14 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class GDRN(nn.Module):
-    """Geometry-guided direct regression network (double-mask variant).
+    """Geometry-guided direct regression network, every variant of the JAX
+    package's ``GDRN``.
 
     forward also takes roi_depth (B,H,W,3|1) for the dual-stream model
     (``engine.batching.build_depth_rois``) and returns: rot (B,3,3)
     egocentric, trans (B,3), rot_allo, centroid_rel (B,2), z_rel (B,),
-    vis_mask / full_mask (B,H,W) raw, coor_x/y/z (B,H,W,D), region
-    (B,H,W,R+1) raw logits; all fp32.
+    vis_mask / full_mask (B,H,W) raw (full_mask None for a single-mask
+    head), coor_x/y/z (B,H,W,D), region (B,H,W,R+1) raw logits; all fp32.
     """
 
     def __init__(self, cfg: PoseNetConfig, dtype: torch.dtype = torch.bfloat16,
@@ -96,58 +160,68 @@ class GDRN(nn.Module):
         super().__init__()
         self.cfg = cfg
         bb, gh, pn = cfg.backbone, cfg.geo_head, cfg.pnp_net
-        if bb.name not in _BACKBONES:
-            raise NotImplementedError(f"backbone {bb.name!r} arrives with slice 5")
-        if gh.name != "top_down_doublemask_xyz_region":
-            raise NotImplementedError(f"geo_head {gh.name!r} arrives with slice 5")
-        if pn.name != "conv_pnp_net":
-            raise NotImplementedError(f"pnp_net {pn.name!r} arrives with slice 5")
+        if gh.name not in _HEADS:
+            raise ValueError(f"Unknown geo_head.name: {gh.name!r}; "
+                             f"expected one of {sorted(_HEADS)}")
+        if pn.name not in _PNP_NETS:
+            raise ValueError(f"Unknown pnp_net.name: {pn.name!r}; expected one of {_PNP_NETS}")
+        fpn = gh.name == "fpn_mask_xyz_region"
         dstream = "dstream" in cfg.name
-        if dstream and cfg.fuse_type not in ("cat", "add"):
-            raise NotImplementedError(f"fuse_type {cfg.fuse_type!r} (ConvFuseNet) "
-                                      "arrives with slice 5")
-        if "cls2reg" in cfg.name:
-            raise NotImplementedError(f"GDRN variant {cfg.name!r} arrives later")
-        if bb.out_index != 3:
-            raise NotImplementedError("only the stride-32 feature (out_index 3)")
-        build, feat_dim = _BACKBONES[bb.name]
-        self.backbone = build(out_indices=(3,), gelu_exact=bb.gelu_exact,
-                              in_chans=bb.in_channels, dtype=dtype)
+        if dstream and fpn:
+            raise ValueError("dstream fusion is single-scale; use a top-down/conv geo head")
+        # cls2reg decodes binned coordinates by soft-argmax
+        # (reference GDRN_cls2reg.py:142-148)
+        self.cls2reg = "cls2reg" in cfg.name
+        if self.cls2reg and cfg.loss.xyz_loss_type not in ("CE_coor", "CE"):
+            raise ValueError("gdrn_cls2reg requires binned (CE) xyz outputs")
+        self.backbone, widths = _build_backbone(bb, (0, 1, 2, 3) if fpn else (bb.out_index,),
+                                                bb.in_channels, dtype)
         # RGB-D dual stream (reference GDRN_Dstream_double_mask.py:37): the
-        # same backbone over the depth ROI (3 channels backprojected, else 1)
-        self.depth_backbone = (build(out_indices=(3,), gelu_exact=bb.gelu_exact,
-                                     in_chans=depth_in_chans, dtype=dtype)
+        # same backbone over the depth ROI (3 channels backprojected, else 1),
+        # fused by concat, sum or ConvFuseNet
+        self.depth_backbone = (_build_backbone(bb, (bb.out_index,), depth_in_chans, dtype)[0]
                                if dstream else None)
-        if dstream and cfg.fuse_type == "cat":
-            feat_dim *= 2
+        self.fuse_net = (ConvFuseNet(widths[0], widths[0], dtype=dtype)
+                         if dstream and cfg.fuse_type == "conv" else None)
+        feat_dim = widths[0] * (2 if dstream and cfg.fuse_type == "cat" else 1)
         xyz_dim, mask_dim, region_dim = xyz_mask_region_out_dims(cfg)
         self._dims = (xyz_dim, mask_dim, region_dim)
         nc = cfg.num_classes
-        self.geo_head_net = TopDownDoubleMaskXyzRegionHead(
-            feat_dim, up_types=gh.up_types,
-            deconv_kernel_size=gh.deconv_kernel_size,
-            num_conv_per_block=gh.num_conv_per_block, feat_dim=gh.feat_dim,
-            feat_kernel_size=gh.feat_kernel_size, norm=gh.norm,
-            num_gn_groups=gh.num_gn_groups, act=gh.act,
-            out_kernel_size=gh.out_kernel_size,
-            mask_num_classes=nc if gh.mask_class_aware else 1,
-            xyz_num_classes=nc if gh.xyz_class_aware else 1,
-            region_num_classes=nc if gh.region_class_aware else 1,
-            mask_out_dim=mask_dim, xyz_out_dim=xyz_dim,
-            region_out_dim=region_dim, dtype=dtype)
-        coor_c = 3 if xyz_dim == 3 else xyz_dim - 3     # binned: bg bin dropped
+        head_cls = _HEADS[gh.name]
+        head_kw = dict(feat_dim=gh.feat_dim, feat_kernel_size=gh.feat_kernel_size,
+                       norm=gh.norm, num_gn_groups=gh.num_gn_groups, act=gh.act,
+                       out_kernel_size=gh.out_kernel_size,
+                       mask_num_classes=nc if gh.mask_class_aware else 1,
+                       xyz_num_classes=nc if gh.xyz_class_aware else 1,
+                       region_num_classes=nc if gh.region_class_aware else 1,
+                       # a single-mask head carries the visible mask's channels only
+                       mask_out_dim=mask_dim if head_cls.double_mask else mask_dim // 2,
+                       xyz_out_dim=xyz_dim, region_out_dim=region_dim, dtype=dtype)
+        if gh.name.startswith("top_down"):
+            head_kw.update(up_types=gh.up_types, deconv_kernel_size=gh.deconv_kernel_size,
+                           num_conv_per_block=gh.num_conv_per_block)
+        self.geo_head_net = head_cls(widths if fpn else feat_dim, **head_kw)
+        # binned: the bg bin dropped (softmax) or all bins -> one value (cls2reg)
+        coor_c = 3 if xyz_dim == 3 or self.cls2reg else xyz_dim - 3
         pnp_in = (coor_c + (2 if pn.with_2d_coord else 0)
                   + (region_dim - 1 if region_dim > 0 and pn.region_attention else 0)
                   + (1 if pn.mask_attention == "concat" else 0))
-        self.pnp_net = ConvPnPNet(
-            pnp_in, featdim=pn.featdim, rot_dim=6 if "rot6d" in pn.rot_type else 4,
-            num_stride2_layers=pn.num_stride2_layers,
-            num_extra_layers=pn.num_extra_layers, norm=pn.norm,
-            num_gn_groups=pn.num_gn_groups, act=pn.act, drop_prob=pn.drop_prob,
-            dropblock_size=pn.dropblock_size, flat_op=pn.flat_op,
-            denormalize_by_extent=pn.denormalize_by_extent,
-            mask_attention=pn.mask_attention, output_res=cfg.output_res,
-            dtype=dtype)
+        rot_dim = 6 if "rot6d" in pn.rot_type else 4
+        if pn.name in ("point_pnp", "simple_point_pnp"):
+            self.pnp_net = SimplePointPnPNet(
+                pnp_in, rot_dim=rot_dim, mask_attention=pn.mask_attention,
+                denormalize_by_extent=pn.denormalize_by_extent, dtype=dtype)
+        else:
+            pnp_kw = dict(featdim=pn.featdim, rot_dim=rot_dim,
+                          num_stride2_layers=pn.num_stride2_layers,
+                          num_extra_layers=pn.num_extra_layers, norm=pn.norm,
+                          num_gn_groups=pn.num_gn_groups, act=pn.act, drop_prob=pn.drop_prob,
+                          dropblock_size=pn.dropblock_size, flat_op=pn.flat_op,
+                          denormalize_by_extent=pn.denormalize_by_extent,
+                          mask_attention=pn.mask_attention, output_res=cfg.output_res,
+                          dtype=dtype)
+            self.pnp_net = (ConvPnPNetCls(pnp_in, nc, **pnp_kw) if pn.name == "conv_pnp_net_cls"
+                            else ConvPnPNet(pnp_in, **pnp_kw))
         # learned task-uncertainty weighting (reference USE_MTL,
         # GDRN_double_mask.py:54-64): one log-variance per loss term
         self.mtl_names = MTL_NAMES if cfg.loss.use_mtl else ()
@@ -164,19 +238,25 @@ class GDRN(nn.Module):
         if roi_img.shape[-1] != pc.backbone.in_channels:
             raise ValueError(f"roi_img has {roi_img.shape[-1]} channels but "
                              f"backbone.in_channels={pc.backbone.in_channels}")
-        # (B, H, W, 3) contiguous -> NCHW view in channels_last memory
+        # (B, H, W, C) contiguous -> NCHW view in channels_last memory
         feat = self.backbone(roi_img.permute(0, 3, 1, 2), drop)
         if self.depth_backbone is not None:
             if roi_depth is None:
                 raise ValueError("the dstream model needs roi_depth")
             dfeat = self.depth_backbone(roi_depth.permute(0, 3, 1, 2), drop)
-            feat = (feat + dfeat if pc.fuse_type == "add"
-                    else torch.cat([feat, dfeat], dim=1))
+            if self.fuse_net is not None:
+                feat = self.fuse_net(feat, dfeat)
+            elif pc.fuse_type == "add":
+                feat = feat + dfeat
+            else:
+                feat = torch.cat([feat, dfeat], dim=1)
         geo = self.geo_head_net(feat, labels=roi_labels)
         coor_x, coor_y, coor_z = geo["coor_x"], geo["coor_y"], geo["coor_z"]
         region = geo["region"]
 
-        if coor_x.shape[1] > 1:   # binned: softmax over bins, bg bin excluded
+        if coor_x.shape[1] > 1 and self.cls2reg:    # near-hard soft-argmax, all bins
+            coor_feat = torch.cat([soft_argmax(c) for c in (coor_x, coor_y, coor_z)], dim=1)
+        elif coor_x.shape[1] > 1:   # binned: softmax over bins, bg bin excluded
             coor_feat = torch.cat([torch.softmax(c[:, :-1], dim=1)
                                    for c in (coor_x, coor_y, coor_z)], dim=1)
         else:
@@ -192,10 +272,11 @@ class GDRN(nn.Module):
         if pn.mask_attention != "none":
             mask_atten = get_mask_prob(_nhwc(geo["vis_mask"]),
                                        pc.loss.mask_loss_type).permute(0, 3, 1, 2)
+        pnp_kw = {"labels": roi_labels} if pn.name == "conv_pnp_net_cls" else {}
         pred_rot_, pred_t_ = self.pnp_net(coor_feat, region=region_atten,
                                           extents=roi_extents,
                                           mask_attention=mask_atten, drop=drop,
-                                          progress=progress)
+                                          progress=progress, **pnp_kw)
 
         if "rot6d" in pn.rot_type:
             rot_allo = rot6d_to_mat(pred_rot_)
@@ -216,8 +297,11 @@ class GDRN(nn.Module):
         else:
             raise ValueError(pn.trans_type)
 
-        vis, full = _nhwc(geo["vis_mask"]), _nhwc(geo["full_mask"])
         squeeze = mask_dim // 2 == 1
+        masks = {}
+        for k in ("vis_mask", "full_mask"):
+            m = None if geo[k] is None else _nhwc(geo[k])
+            masks[k] = m[..., 0] if m is not None and squeeze else m
         return {
             "log_vars": ({n: getattr(self, f"log_var_{n}") for n in self.mtl_names}
                          if self.mtl_names else None),
@@ -226,8 +310,7 @@ class GDRN(nn.Module):
             "trans": trans,
             "centroid_rel": pred_t_[:, :2],
             "z_rel": pred_t_[:, 2],
-            "vis_mask": vis[..., 0] if squeeze else vis,
-            "full_mask": full[..., 0] if squeeze else full,
+            **masks,
             "coor_x": _nhwc(coor_x),
             "coor_y": _nhwc(coor_y),
             "coor_z": _nhwc(coor_z),

@@ -192,12 +192,12 @@ class CSPDarknet(nn.Module):
 
     def __init__(self, dep_mul: float = 1.0, wid_mul: float = 1.0,
                  depthwise: bool = False, norm: str = "GN",
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, in_chans: int = 3):
         super().__init__()
         c = int(wid_mul * 64)
         d = max(round(dep_mul * 3), 1)
         kw = dict(norm=norm, dtype=dtype)
-        self.stem = Focus(3, c, 3, **kw)
+        self.stem = Focus(in_chans, c, 3, **kw)
         self.dark2 = nn.Sequential(BaseConv(c, 2 * c, 3, 2, **kw),
                                    CSPLayer(2 * c, 2 * c, d, depthwise=depthwise, **kw))
         self.dark3 = nn.Sequential(BaseConv(2 * c, 4 * c, 3, 2, **kw),

@@ -15,28 +15,33 @@ import numpy as np
 
 def geo_out_channel_perm(mask_out_dim: int, xyz_out_dim: int,
                          region_out_dim: int, mask_nc: int = 1,
-                         xyz_nc: int = 1, region_nc: int = 1) -> np.ndarray:
+                         xyz_nc: int = 1, region_nc: int = 1,
+                         double_mask: bool = True) -> np.ndarray:
     """Channel permutation from the reference's shared out-conv layout to
     the JAX package's.
 
     Reference layout (group-major): [vis(c0..cN), full(c0..cN),
     x(c0..cN x bins), y(...), z(...), region(c0..cN)], each sub-block
     class-major. JAX layout (class-major): per class [vis, full] | per class
-    [x-bins, y-bins, z-bins] | per class [region].
+    [x-bins, y-bins, z-bins] | per class [region]. A single-mask head
+    (``double_mask=False``) has one mask block of ``mask_out_dim`` channels
+    per class, class-major in both layouts.
 
     Returns perm with jax_channel[i] = ref_channel[perm[i]].
     """
-    md2 = mask_out_dim // 2
     pk = xyz_out_dim // 3
     perm = []
-    # mask group: class-major (vis md2, full md2) per class
-    vis_base, full_base = 0, mask_nc * md2
-    for c in range(mask_nc):
-        perm += [vis_base + c * md2 + j for j in range(md2)]
-        perm += [full_base + c * md2 + j for j in range(md2)]
+    if double_mask:
+        # mask group: class-major (vis md2, full md2) per class
+        md2 = mask_out_dim // 2
+        for c in range(mask_nc):
+            perm += [c * md2 + j for j in range(md2)]
+            perm += [mask_nc * md2 + c * md2 + j for j in range(md2)]
+    else:
+        perm += list(range(mask_nc * mask_out_dim))
     # xyz group: class-major (x pk, y pk, z pk) per class; the reference is
     # axis-major then class-major
-    xyz_base = 2 * mask_nc * md2
+    xyz_base = len(perm)
     for c in range(xyz_nc):
         for k in range(3):
             perm += [xyz_base + k * (xyz_nc * pk) + c * pk + i

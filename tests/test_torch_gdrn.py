@@ -33,7 +33,9 @@ _KEYS = ("rot", "trans", "rot_allo", "centroid_rel", "z_rel", "vis_mask",
     {"model.pose_net.backbone.gelu_exact": True,
      "model.pose_net.pnp_net.rot_type": "ego_rot6d",
      "model.pose_net.pnp_net.mask_attention": "concat"},
-], ids=["flagship_recipe", "exact_gelu_ego_maskatt"])
+    # the deconv up-block's norm follows geo_head.norm (it was always a GN)
+    {"model.pose_net.geo_head.norm": "LN"},
+], ids=["flagship_recipe", "exact_gelu_ego_maskatt", "geo_head_ln"])
 def test_gdrn_matches_jax(overrides):
     cfg = tiny_cfg(**overrides)
     jm, params = jax_gdrn_params(cfg, seed=0)
@@ -127,12 +129,18 @@ def test_bf16_forward_keeps_fp32_islands():
 
 
 def test_unported_variants_raise():
+    """Every variant the JAX GDRN builds is ported: the three that
+    raised NotImplementedError build, and only unknown names raise, with
+    ValueError as in the JAX package (tests/test_torch_gdrn_variants.py holds
+    each variant to JAX)."""
     from gdrnpp_bop2022_tpu.config import replace_cfg
     for over in ({"model.pose_net.backbone.name": "resnet34"},
                  {"model.pose_net.geo_head.name": "conv_mask_xyz_region"},
                  {"model.pose_net.pnp_net.name": "conv_pnp_net_cls"}):
-        with pytest.raises(NotImplementedError):
-            build_gdrn(replace_cfg(tiny_cfg(), over), device="cpu")
+        build_gdrn(replace_cfg(tiny_cfg(), over), device="cpu")
+    with pytest.raises(ValueError, match="Unknown backbone"):
+        build_gdrn(replace_cfg(tiny_cfg(), {"model.pose_net.backbone.name": "resnet35"}),
+                   device="cpu")
 
 
 _DSTREAM = {"model.pose_net.name": "gdrn_dstream_double_mask"}
@@ -177,9 +185,13 @@ def test_dstream_bridge_is_inverse_of_convert_gdrn_checkpoint():
 
 
 def test_dstream_conv_fusion_raises():
+    """ConvFuseNet is ported: fuse_type="conv" builds it; what
+    raises is the dual stream with the multi-scale FPN head, as in JAX."""
     cfg = tiny_cfg(**_DSTREAM, **{"model.pose_net.fuse_type": "conv"})
-    with pytest.raises(NotImplementedError, match="ConvFuseNet"):
-        build_gdrn(cfg, device="cpu")
+    assert build_gdrn(cfg, device="cpu").fuse_net is not None
+    with pytest.raises(ValueError, match="single-scale"):
+        build_gdrn(tiny_cfg(**_DSTREAM, **{"model.pose_net.geo_head.name":
+                                           "fpn_mask_xyz_region"}), device="cpu")
 
 
 def test_rgbd_flagship_has_two_backbones_of_40_layer_norms():

@@ -33,7 +33,9 @@ def test_port_imports_no_jax():
     assert out["jax"] == [], out["jax"]
     for m in ("geometry.rotations", "geometry.se3", "ops.layer_norm", "ops.crop",
               "models.layers", "models.backbones.convnext",
+              "models.backbones.resnet", "models.backbones.resnest",
               "models.heads.top_down_head", "models.heads.conv_pnp_net",
+              "models.heads.point_pnp_net",
               "models.gdrn", "engine.batching", "engine.inference",
               "datasets.test_loader", "datasets.bop_data", "datasets.meta",
               "bop.inout", "utils.weights", "utils.cuda_build", "config",

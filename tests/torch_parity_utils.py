@@ -68,6 +68,8 @@ def jax_gdrn_params(cfg: Config, seed: int = 0):
     keys = ("roi_img", "roi_labels", "roi_coord_2d", "roi_cams", "roi_centers",
             "roi_whs", "roi_extents", "resize_ratios")
     args = [jnp.asarray(fb[k]) for k in keys]
+    # backbone.in_channels: 6 for early RGB-D fusion
+    args[0] = jnp.zeros(args[0].shape[:3] + (pc.backbone.in_channels,), jnp.float32)
     if "dstream" in pc.name:        # the depth stream's backprojected ROI
         args.append(jnp.zeros((2, pc.input_res, pc.input_res, 3), jnp.float32))
     shapes = jax.eval_shape(lambda k: model.init({"params": k}, *args),
@@ -115,7 +117,7 @@ def roi_batch(cfg: Config, B: int, seed: int = 0) -> dict:
     rs = np.random.RandomState(seed)
     R, r = pc.input_res, pc.output_res
     return {
-        "roi_img": rs.randn(B, R, R, 3).astype(np.float32),
+        "roi_img": rs.randn(B, R, R, pc.backbone.in_channels).astype(np.float32),
         "roi_labels": rs.randint(0, pc.num_classes, B).astype(np.int32),
         "roi_coord_2d": rs.rand(B, r, r, 2).astype(np.float32),
         "roi_cams": np.tile(np.array([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]],
