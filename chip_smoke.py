@@ -22,9 +22,10 @@ through ``engine.trainer.train_gdrn`` on a synthetic BOP train split, with
 colour, background and depth augmentation, and in pool mode); then the YOLOX
 detector at the BOP'22 recipe and the two-stage path (images -> detections
 -> handoff json -> poses -> scores); then the GDRN model variants (other
-backbones, heads and PnP nets) at full width; and checks the models on the
-card against the same models on the CPU in fp32. It prints its
-wall time. Phases:
+backbones, heads and PnP nets) at full width; then the BOP sweep over two
+datasets, the per-object path and the release tools; then the exported
+forward and the auxiliary ops; and checks the models on the card against
+the same models on the CPU in fp32. It prints its wall time. Phases:
 
   1. device: name, versions, power limit; build both kernels (one nvcc
      each, started together);
@@ -134,7 +135,29 @@ wall time. Phases:
      ConvFuseNet (B1: 80 a forward): rows finite and orthonormal, the CSV,
      forwards and B1 launches counted, serving ROI/s with p50 / p99 a batch,
      the forward alone by CUDA events, and each against the CPU in fp32 on 2
-     ROIs with TF32 off.
+     ROIs with TF32 off;
+ 16. the BOP sweep: a second scene for lmo (its 8 object ids and camera,
+     analytic depth), then ``python -m gdrnpp_bop2022_torch.tools.
+     run_bop_sweep --datasets ycbv lmo --mode eval`` with yolox-x at 640^2
+     (random weights) and the convnext_base recipes at full width (seed 0):
+     per dataset ``test_yolox`` writes the handoff json and ``test_gdrn``
+     serves and scores it, each in a process of its own (B1's launches per
+     GDRN forward and B2's in the scorer read from the stage's stats.json);
+     the summary's mean_AR; ``score_csv --dataset lmo`` on the lmo scene's
+     GT poses as estimates (AR = AR_vsd = AR_mssd = AR_mspd = 1.0); then the
+     per-object path: ``test_gdrn --config
+     ycbvSO/<obj>`` for two objects, ``merge_so_results``,
+     ``process_results_time`` (one time per image), ``score_csv`` on the
+     merged CSV; ``strip_ckpt --use-ema`` on phase 10's checkpoint, whose
+     weights serve the poses the checkpoint serves;
+ 17. ``python -m gdrnpp_bop2022_torch.tools.export_model`` of the flagship
+     ``Config()`` at batch 64 with seeded weights (``torch.export``; B1 is
+     the operator ``gdrnpp::layer_norm``), reloaded and run: 40 B1 launches a
+     forward, the eager model's poses (bf16; and in fp32 with TF32 off), its
+     time and profile beside the eager forward's; each auxiliary op (fps,
+     chamfer, flow, canny, RANSAC voting) on the card against the CPU on the
+     same inputs, fp32, TF32 off, timed by CUDA events; the RLE codec through
+     its native library against its numpy path.
 
 The scene's sensor depth is analytic (ray-ellipsoid), never rendered by the
 kernel under test. Any failure raises (exit code 1). Without a CUDA device
@@ -363,6 +386,24 @@ VARIANTS = (
 VARIANT_SEED = SEED + 20
 VARIANT_PROFILE_CALLS = 3
 VARIANT_PROFILE_TOP = 8
+# phase 16: the sweep over two core datasets and the per-object path
+SWEEP_DATASETS = ("ycbv", "lmo")
+LMO_SCENE = 2               # lmo's test scene
+SO_OBJECTS = ("002_master_chef_can", "003_cracker_box")
+STRIP_POSE_TOL = 1e-5       # stripped EMA weights vs the checkpoint's: the same weights
+# phase 17: export and the auxiliary ops
+EXPORT_BF16_TOL = 2 ** -7   # one bf16 ulp at 1: rot, and trans over its largest
+EXPORT_F32_TOL = 1e-3
+FPS_SHAPE = (16384, 64)     # points, samples
+CHAMFER_SHAPE = (64, 2048, 2048)
+AUX_IMAGES = (8, 480, 640)  # flow and canny
+RANSAC_SHAPE = (4, 480, 640, 9, 128)    # images, H, W, keypoints, hypotheses
+RANSAC_CPU_IMAGES = 1       # the CPU repeats the first image's keypoints
+CHAMFER_REL_TOL = 1e-5
+FLOW_TOL = 1e-4             # px
+RANSAC_TOL = 1e-3           # px
+CANNY_MARGIN = 1e-4
+RLE_MASKS = 8
 YX_LEARN_IMAGES = 6
 YX_LEARN_STEPS = 200
 YX_LEARN_AP50 = 0.5
@@ -482,7 +523,7 @@ def profile_calls(fn, n):
 
 def phase_device():
     name = torch.cuda.get_device_name(0)
-    log(f"[1/15] device: {name} x{torch.cuda.device_count()}  torch "
+    log(f"[1/17] device: {name} x{torch.cuda.device_count()}  torch "
         f"{torch.__version__}  CUDA {torch.version.cuda}  python "
         f"{sys.version.split()[0]}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -496,7 +537,7 @@ def phase_device():
     build_kernel_libraries(["layer_norm", "raster"])    # nvcc, both at once
     for lib in ("layer_norm", "raster"):
         load_kernel_library(lib)
-    log(f"[1/15] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
+    log(f"[1/17] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s")
     return name, card
 
@@ -553,11 +594,11 @@ def ln_times(card):
         for key, v in zip(t, (k, kc, p, lib, libc, cp)):
             t[key] += n * v
         n_bytes += n * (2 * x.numel() * x.element_size() + 2 * C * 4)
-        log(f"[2/15] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
+        log(f"[2/17] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
             f"{kc:.4f} ms, plain {p:.4f} ms, F.layer_norm hot {lib:.4f} ms cold {libc:.4f} ms,"
             f" copy_ cold {cp:.4f} ms")
     t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[2/15] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
+    log(f"[2/17] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
         f"{t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms ({100 * t['bound_ms'] / t['cold_ms']:.1f}% "
         f"of the bound cold); plain {t['plain_ms']:.4f} ms; F.layer_norm hot "
         f"{t['library_ms']:.4f} ms, cold {t['library_cold_ms']:.4f} ms; copy_ of the same "
@@ -585,7 +626,7 @@ def phase_kernels(card):
         want = off == 0 and C * x.element_size() % 16 == 0
         check(vec == want, f"B1 path for C={C} {dt} offset {off}: vector={vec}")
         worst = max(worst, err)
-        log(f"[2/15] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
+        log(f"[2/17] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
             f"{'vector' if vec else 'scalar'} path: max_abs_err={err:.3g}")
         check(ok, f"B1 disagrees with its plain version at rows={rows} C={C} "
                   f"{dt} offset {off}: max abs err {err}")
@@ -658,35 +699,38 @@ def random_rotation(rs):
     return q * np.sign(np.linalg.det(q))
 
 
-def write_models(models_dir, axes_mm):
-    """The 21 ellipsoid models as PLY files + models_info.json (mm)."""
+def write_models(models_dir, axes_mm, obj_ids=None):
+    """Ellipsoid models as PLY files + models_info.json (mm), one per axes
+    row, with the ids obj_ids (default 1, 2, ...)."""
     from gdrnpp_bop2022_torch.bop.inout import save_json
     os.makedirs(models_dir)
     info = {}
-    for i, a in enumerate(axes_mm):
+    for oid, a in zip(obj_ids or range(1, len(axes_mm) + 1), axes_mm):
         pts, faces = ellipsoid_mesh(a)
-        write_ply(os.path.join(models_dir, f"obj_{i + 1:06d}.ply"), pts, faces)
-        info[str(i + 1)] = {"diameter": float(2 * a.max()), "min_x": -a[0], "min_y": -a[1],
-                            "min_z": -a[2], "size_x": 2 * a[0], "size_y": 2 * a[1],
-                            "size_z": 2 * a[2]}
+        write_ply(os.path.join(models_dir, f"obj_{oid:06d}.ply"), pts, faces)
+        info[str(oid)] = {"diameter": float(2 * a.max()), "min_x": -a[0], "min_y": -a[1],
+                          "min_z": -a[2], "size_x": 2 * a[0], "size_y": 2 * a[1],
+                          "size_z": 2 * a[2]}
     save_json(os.path.join(models_dir, "models_info.json"), info)
 
 
-def make_rgbd_scene(root, rs):
-    """A BOP test split of N_IMAGES 480x640 RGB + depth PNGs (YCB-V ids and
-    camera, depth_scale 0.1) with DETS_PER_IMAGE ellipsoids each (their
-    visible fractions in scene_gt_info.json), the 21 models as PLY +
-    models_info.json, and a detections file; root is <dataset root>/ycbv."""
+def make_rgbd_scene(root, rs, dataset="ycbv", scene_id=48):
+    """A BOP test split of N_IMAGES 480x640 RGB + depth PNGs (the dataset's
+    object ids and camera, depth_scale 0.1) with DETS_PER_IMAGE ellipsoids
+    each (as many as the dataset has objects, if fewer; their visible
+    fractions in scene_gt_info.json), one ellipsoid model per object as PLY
+    + models_info.json, and a detections file; root is <dataset root>/<dataset>."""
     import cv2
     from gdrnpp_bop2022_torch.bop.inout import save_json
     from gdrnpp_bop2022_torch.datasets.meta import get_meta
-    meta = get_meta("ycbv")
+    meta = get_meta(dataset)
     K = meta.camera_matrix.astype(np.float64)
-    axes_mm = rs.uniform(25.0, 100.0, (21, 3))
+    obj_ids = meta.obj_ids()
+    axes_mm = rs.uniform(25.0, 100.0, (len(obj_ids), 3))
     models_dir = os.path.join(root, "models")
-    write_models(models_dir, axes_mm)
+    write_models(models_dir, axes_mm, obj_ids)
 
-    sdir = os.path.join(root, "test", "000048")
+    sdir = os.path.join(root, "test", f"{scene_id:06d}")
     for sub in ("rgb", "depth"):
         os.makedirs(os.path.join(sdir, sub))
     H, W = meta.height, meta.width
@@ -695,10 +739,10 @@ def make_rgbd_scene(root, rs):
     for im in range(N_IMAGES):
         depth = np.zeros((H, W))
         shade = np.zeros((H, W))
-        objs = rs.choice(np.arange(1, 22), DETS_PER_IMAGE, replace=False)
+        objs = rs.choice(np.asarray(obj_ids), min(DETS_PER_IMAGE, len(obj_ids)), replace=False)
         gt[str(im)], boxes, own = [], [], []
         for o in objs:
-            ax = axes_mm[o - 1] * 1e-3
+            ax = axes_mm[obj_ids.index(o)] * 1e-3
             R = random_rotation(rs)
             z = rs.uniform(0.7, 1.3)
             u, v = rs.uniform(90, W - 90), rs.uniform(90, H - 90)
@@ -736,7 +780,7 @@ def make_rgbd_scene(root, rs):
         cv2.imwrite(os.path.join(sdir, "depth", f"{im:06d}.png"),
                     np.round(depth * 10000).astype(np.uint16))   # 0.1 mm units
         cam[str(im)] = {"cam_K": K.ravel().tolist(), "depth_scale": 0.1}
-        dets[f"48/{im}"] = boxes
+        dets[f"{scene_id}/{im}"] = boxes
     save_json(os.path.join(sdir, "scene_gt.json"), gt)
     save_json(os.path.join(sdir, "scene_gt_info.json"), info)
     save_json(os.path.join(sdir, "scene_camera.json"), cam)
@@ -832,7 +876,7 @@ def seam_scene(n=8, device="cuda"):
             dev(np.zeros((n, 3), np.float32)), dev(K), 64, 64)
 
 
-def _raster_case(label, verts, faces, R, t, K, H, W, tag="[3/15]"):
+def _raster_case(label, verts, faces, R, t, K, H, W, tag="[3/17]"):
     """The pack kernel vs the torch packing and the cull rule, and the
     kernel (both modes) vs plain (both modes), at one shape; returns the
     worst depth / xyz errors."""
@@ -959,7 +1003,7 @@ def phase_raster(card, scene, bank):
     # faces per tile after culling, and the bound, at the flagship
     bd = raster_bound(*flag)
     pt = bd["per_tile"].float()
-    log(f"[3/15] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
+    log(f"[3/17] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
         f"{float(pt.mean()):.1f}, max {int(pt.max())} of {F}; {bd['pairs']:.4e} pixel-face "
         f"pairs inside the boxes vs {bd['all_pairs']:.4e} all pairs")
     # times at the flagship, depth only (the mode depth refinement runs)
@@ -982,14 +1026,14 @@ def phase_raster(card, scene, bank):
                                                   max_block=PLAIN_MAX_BLOCK), iters=3,
                    warmup=1)
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"          # noqa: E731
-    log(f"[3/15] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
+    log(f"[3/17] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
         f"{t['cold_ms']:.4f} ms (2 launches; the raster kernel alone {kernel_only_ms:.4f} ms "
         f"by events, {fmt(t['kernel_ms'])} by the profiler, the pack kernel "
         f"{fmt(t['pack_kernel_ms'])}); attribute mode {k_attr_ms:.4f} ms; plain "
         f"{p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms ({bd['pairs']:.4e} tests x "
         f"{RASTER_OPS_PER_TEST} fp32 ops at 67 TFLOP/s, {bd['bound_by']}), all-pairs bound "
         f"{bd['all_pairs_bound_ms']:.4f} ms  [{card}]")
-    log(f"[3/15] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
+    log(f"[3/17] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
         f"kernels {full_ms:.4f} ms of device time per call  [{card}]")
     vsd = [_vsd_shape(card, vsd_shape_input(scene, bank, np.random.RandomState(SEED + 20 + i),
                                             n, bh, bw), n)
@@ -1083,7 +1127,7 @@ def _vsd_shape(card, inp, n):
     bd = raster_bound(*inp)
     pt = bd["per_tile"].float()
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
-    log(f"[3/15] B2 {label} ({faces.shape[1]} faces): == plain version bit for bit "
+    log(f"[3/17] B2 {label} ({faces.shape[1]} faces): == plain version bit for bit "
         f"({int(hit.sum())} px hit); hot {hot:.4f} ms, cold {cold:.4f} ms per call (the "
         f"raster kernel {fmt(k['raster_kernel'])}, pack {fmt(k['pack_faces_kernel'])}; the "
         f"raster kernel on empty boxes, i.e. its box tests alone, {fmt(box_ms)}); faces per "
@@ -1192,11 +1236,11 @@ def phase_slice(card, tmp):
     check(launches == LN_PER_FORWARD * forwards[0],
           f"layer_norm launches {launches} != 40 x {forwards[0]} forwards")
     orth = _check_rows(results, n_rois, tmp, "rgb")
-    log(f"[4/15] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
+    log(f"[4/17] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
         f"batches of {BATCH} + warm-up: {forwards[0]} forwards, layer_norm "
         f"launches {launches} = 40 x {forwards[0]}; rows finite, "
         f"max|R^T R - I| = {orth:.2e}; CSV {len(results)} rows")
-    log(f"[4/15] RGB serving (ROI crop + forward + decode, host clock after "
+    log(f"[4/17] RGB serving (ROI crop + forward + decode, host clock after "
         f"synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -1211,7 +1255,7 @@ def phase_slice(card, tmp):
                               dev(b0["labels"]), dev(extents).float(),
                               input_res=pc.input_res, output_res=pc.output_res)
         fwd_ms = cuda_ms(lambda: model(**rb), iters=10)
-    log(f"[4/15] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[4/17] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s  [{card}]")
     serve = {"model": model, "forwards": forwards, "extents": extents, "kw": kw,
              "batches": lambda: iter_test_batches(by_im, dets, batch_size=BATCH),
@@ -1276,13 +1320,13 @@ def phase_rgbd_slice(card, scene, bank, tmp):
     check(p_launches == r_launches, f"RGB-D: pack launches {p_launches} != raster "
           f"launches {r_launches}")
     orth = _check_rows(results, n_rois, tmp, "rgbd")
-    log(f"[5/15] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
+    log(f"[5/17] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
         f"{bank.faces.shape[0]} meshes x {bank.faces.shape[1]} faces) in {nb} batches of "
         f"{BATCH} + warm-up, post_mode=depth_refine x{iters}: {forwards[0]} forwards, "
         f"layer_norm launches {ln_launches} = 80 x {forwards[0]}, raster launches "
         f"{r_launches} = {iters} x {nb + 1} (and as many pack launches); rows finite, max|R^T R - I| = {orth:.2e}; "
         f"CSV {len(results)} rows")
-    log(f"[5/15] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
+    log(f"[5/17] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
         f"after synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -1311,7 +1355,7 @@ def phase_rgbd_slice(card, scene, bank, tmp):
                     scales, bv, bf, rb["roi_extents"])
         refine_ms = cuda_ms(lambda: depth_refine_batch(*ref_args, iters=iters,
                                                        out_res=pc.output_res), iters=10)
-    log(f"[5/15] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[5/17] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s; depth refine x{iters}: {refine_ms:.3f} ms "
         f"per batch  [{card}]")
     rows2 = {k: v[:2] for k, v in rb.items()}
@@ -1339,7 +1383,7 @@ def phase_refine(card, scene, bank):
           f"depth refine left a z error of {worst_z} m from a {REFINE_OFFSET_M} m offset")
     dt = float((t_k - t_p).abs().max())
     check(dt <= REFINE_T_TOL, f"refined t, B2 vs plain rasterizer: {dt} m")
-    log(f"[6/15] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
+    log(f"[6/17] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
         f"in z, 2 iterations: z error max {worst_z * 1e3:.3f} mm, mean "
         f"{float(z_err.mean()) * 1e3:.3f} mm (limit {0.3 * REFINE_OFFSET_M * 1e3:.1f} mm); "
         f"B2 vs plain rasterizer max |dt| = {dt:.3g} m  [{card}]")
@@ -1394,7 +1438,7 @@ def phase_pnp(card, scene, bank, serve, tmp):
         check(r_err.max() < PNP_R_TOL_DEG and t_err.max() < PNP_T_TOL_M,
               f"{name} from perfect dense outputs: R error {r_err.max()} deg, t error "
               f"{t_err.max()} m")
-        log(f"[7/15] {name} recovers {n} known poses from B2-rendered XYZ / mask / 2D coords "
+        log(f"[7/17] {name} recovers {n} known poses from B2-rendered XYZ / mask / 2D coords "
             f"at {res}x{res}: R error max {r_err.max():.4f} deg, t error max "
             f"{t_err.max() * 1e3:.3f} mm (limits {PNP_R_TOL_DEG} deg, "
             f"{PNP_T_TOL_M * 1e3:.0f} mm); {ms:.3f} ms per batch of {n}  [{card}]")
@@ -1431,7 +1475,7 @@ def phase_pnp(card, scene, bank, serve, tmp):
             post_ms = cuda_ms(post[mode], iters=5, warmup=1)
         times[mode] = {"post_ms": post_ms, "p50_ms": stats["p50_ms"],
                        "rois_per_sec": stats["rois_per_sec"], "launches": launches}
-        log(f"[7/15] RGB post_mode={mode}: served {n_rois} ROIs in {nb} batches of {BATCH} + "
+        log(f"[7/17] RGB post_mode={mode}: served {n_rois} ROIs in {nb} batches of {BATCH} + "
             f"warm-up, layer_norm launches {launches} = 40 x {forwards[0]}; rows finite, "
             f"max|R^T R - I| = {orth:.2e}; {stats['rois_per_sec']:.1f} ROI/s, p50 "
             f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch; the PnP step "
@@ -1510,7 +1554,7 @@ def phase_score(card, scene, bank, tmp):
     check(all(s_gt[k] == 1.0 for k in ar_keys),
           f"GT poses as estimates: {({k: s_gt[k] for k in ar_keys})}")
     sec = ", ".join(f"{k} {v:.3f} s" for k, v in stats["seconds"].items())
-    log(f"[8/15] scoring GT poses as estimates ({len(gts)} GT, {n_vis} at visib >= 0.1, "
+    log(f"[8/17] scoring GT poses as estimates ({len(gts)} GT, {n_vis} at visib >= 0.1, "
         f"{stats['n_targets']} targets, {stats['n_pairs']} pairs) on the card, "
         f"vsd_mode=full: AR = AR_vsd = AR_mssd = AR_mspd = 1.0; VSD pairs per render "
         f"{stats['vsd_pairs']}; {launches} B2 calls; {sec}; "
@@ -1538,7 +1582,7 @@ def phase_score(card, scene, bank, tmp):
               f"ladder {name}: card vs CPU gap {gap} on image {cpu_im}")
         ladder.append({"rung": name, **{k: s_b2[k] for k in ar_keys},
                        "seconds": st["seconds"]["total"]})
-        log(f"[8/15] ladder {name}: " + " ".join(f"{k}={s_b2[k]:.4f}" for k in ar_keys)
+        log(f"[8/17] ladder {name}: " + " ".join(f"{k}={s_b2[k]:.4f}" for k in ar_keys)
             + f" (B2 == plain rasterizer on the card, every key; image {cpu_im}'s "
             f"{len(sub)} GT on the card vs the CPU: max gap {gap:.2e}); "
             f"{st['seconds']['total']:.3f} s, {st['targets_per_s']:.1f} targets/s; with the "
@@ -1577,7 +1621,7 @@ def phase_score(card, scene, bank, tmp):
             n_fit += len(m)
             n_eq += int((diff == 0).sum())
             worst = max(worst, float((diff / share).max()))
-    log(f"[8/15] bbox VSD vs full-image VSD on the card, {n_fit} pairs whose plan fits a "
+    log(f"[8/17] bbox VSD vs full-image VSD on the card, {n_fit} pairs whose plan fits a "
         f"bucket (of {len(gts)}; ladder rung {LADDER[-1][0]}): {n_eq} equal, the rest within "
         f"one pixel's share of their union (worst {worst:.2f} of it): the window's principal "
         f"point, shifted by the integer origin, rounds u by <= 1 ulp  [{card}]")
@@ -1593,7 +1637,7 @@ def phase_score(card, scene, bank, tmp):
     check(all(k in cli and np.isfinite(cli[k]) and 0.0 <= cli[k] <= 1.0 for k in ar_keys)
           and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in cli.values()),
           f"score_csv CLI scores {cli}")
-    log(f"[8/15] python -m gdrnpp_bop2022_torch.tools.score_csv on the served RGB-D CSV: "
+    log(f"[8/17] python -m gdrnpp_bop2022_torch.tools.score_csv on the served RGB-D CSV: "
         + " ".join(f"{k}={cli[k]:.4f}" for k in ar_keys)
         + f", {len(cli)} keys all finite in [0, 1]; {time.perf_counter() - t0:.1f} s "
         f"with the process start  [{card}]")
@@ -1605,7 +1649,7 @@ def phase_score(card, scene, bank, tmp):
 # ---------------------------------------------------------------------------
 
 def _ln_bwd_case(rows, C, dtype, g, offset=0):
-    """B1's backward (through LayerNormFn, as training calls it) vs its plain
+    """B1's backward (gdrnpp::layer_norm's autograd, as training calls it) vs its plain
     version (autograd through layer_norm_ref) on x, dy (rows, C) drawn from
     g; returns (max abs err of dx, of dweight / dbias relative to the sum of
     the absolute values of their terms, ok)."""
@@ -1672,13 +1716,13 @@ def ln_backward_times(card):
             t[key] += n * v
         n_bytes += n * (3 * x.numel() * 2 + 2 * rows * 4 + 3 * C * 4)
         fwd_bytes += n * (2 * x.numel() * 2 + 2 * rows * 4 + 2 * C * 4)
-        log(f"[10/15] B1 backward rows={rows} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms "
+        log(f"[10/17] B1 backward rows={rows} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms "
             f"cold {kc:.4f} ms, plain {p:.4f} ms, native_layer_norm_backward hot {lib:.4f} "
             f"ms, copy_ of the same bytes cold {cp:.4f} ms; forward with statistics cold "
             f"{fs:.4f} ms")
     t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
     t["fwd_stats_bound_ms"] = fwd_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[10/15] B1 backward per training step at batch {TRAIN_BATCH} (40 LayerNorms, "
+    log(f"[10/17] B1 backward per training step at batch {TRAIN_BATCH} (40 LayerNorms, "
         f"bf16): kernel hot {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms "
         f"({100 * t['bound_ms'] / t['cold_ms']:.1f}% of the bound cold); plain "
         f"{t['plain_ms']:.4f} ms; native_layer_norm_backward hot {t['library_ms']:.4f} ms; "
@@ -1703,7 +1747,7 @@ def phase_ln_backward(card):
         x = torch.empty(rows * C + off, dtype=dt, device="cuda")[off:].view(rows, C)
         vec = _vector_path(x, x, torch.empty(C, device="cuda"))
         worst = max(worst, err)
-        log(f"[10/15] B1 backward rows={rows} C={C} {str(dt)[6:]} offset={off} "
+        log(f"[10/17] B1 backward rows={rows} C={C} {str(dt)[6:]} offset={off} "
             f"{'vector' if vec else 'scalar'} path: dx max_abs_err={err:.3g}, dweight/dbias "
             f"max err / sum|terms| = {rel:.3g}")
         check(ok, f"B1 backward disagrees with its plain version at rows={rows} C={C} {dt} "
@@ -1829,7 +1873,7 @@ def _aug_check(card, cfg, records, meta, bg_paths):
     check(bg_exact and err <= AUG_TOL and 0 < float(gate.sum()) < TRAIN_BATCH,
           f"augmentation card vs CPU: background exact {bg_exact}, colour max err {err}")
     ms = cuda_ms(lambda: augment(), iters=5, warmup=1)
-    log(f"[10/15] background replacement (p {inp.change_bg_prob}, {len(bg_paths)} images) and "
+    log(f"[10/17] background replacement (p {inp.change_bg_prob}, {len(bg_paths)} images) and "
         f"{aug_type} colour augmentation (p {inp.color_aug.prob}) of a training batch "
         f"({TRAIN_BATCH} x 480x640) on the card vs their plain versions on the CPU, same "
         f"draws, first {n} images: background bit for bit ({int(gate.sum())} of "
@@ -1857,7 +1901,7 @@ def _train_b2(card, records, bank, meta):
            dev("gt_rots"), dev("gt_transes"),
            centered_crop_K(dev("Ks"), dev("centers"), dev("scales"), 64), 64, 64)
     F = inp[1].shape[1]
-    err = _raster_case(f"training batch B={TRAIN_BATCH} 64x64 F={F}", *inp, tag="[10/15]")
+    err = _raster_case(f"training batch B={TRAIN_BATCH} 64x64 F={F}", *inp, tag="[10/17]")
     call = lambda: render_depth_xyz_cuda(*inp)                      # noqa: E731
     bd = raster_bound(*inp)
     # hot by the profiler: events around back-to-back calls of ~40 us time
@@ -1866,7 +1910,7 @@ def _train_b2(card, records, bank, meta):
          "plain_ms": cuda_ms(lambda: render_depth_xyz_batch(*inp, max_block=PLAIN_MAX_BLOCK),
                              iters=3, warmup=1),
          "bound_ms": bd["bound_ms"], "max_abs_err": err, "faces": F}
-    log(f"[10/15] B2 attribute mode at the training batch ({TRAIN_BATCH} ROIs x 64^2 x {F} "
+    log(f"[10/17] B2 attribute mode at the training batch ({TRAIN_BATCH} ROIs x 64^2 x {F} "
         f"faces, decimated): hot {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({bd['pairs']:.4e} pixel-face "
         f"pairs in the boxes, {bd['bound_by']}); faces per tile mean "
@@ -1874,7 +1918,7 @@ def _train_b2(card, records, bank, meta):
     return t
 
 
-def _train_parity(card, records, bank, meta, over=None, tag="[10/15]"):
+def _train_parity(card, records, bank, meta, over=None, tag="[10/17]"):
     """One fp32 step of the tiny config (with ``over``: the dual stream) on
     the card and on the CPU from the same weights and batch (built once on
     the CPU): losses, grads and the params after the step."""
@@ -1951,7 +1995,7 @@ def _train_parity(card, records, bank, meta, over=None, tag="[10/15]"):
         f"{par_err:.2e} (limit {par_tol})")
 
 
-def _train_profile(card, cfg, state, records, bank, meta, bg_paths, tag="[10/15]"):
+def _train_profile(card, cfg, state, records, bank, meta, bg_paths, tag="[10/17]"):
     """Where a training step's device time goes: torch.profiler over
     TRAIN_PROFILE_STEPS steps (host prep of one loader batch included, with
     its augmentations, the loader's wait not): kernel time by name, and the
@@ -2182,7 +2226,7 @@ def phase_train(card, scene, tmp):
     records = records_for(cfg, meta, cfg.datasets.train)
     check(bank.faces.shape[1] <= pc.gt_max_faces and len(records) >= TRAIN_BATCH,
           f"bank faces {bank.faces.shape}, {len(records)} records")
-    log(f"[10/15] train split: {TRAIN_IMAGES} 480x640 images x {DETS_PER_IMAGE} ellipsoids, "
+    log(f"[10/17] train split: {TRAIN_IMAGES} 480x640 images x {DETS_PER_IMAGE} ellipsoids, "
         f"analytic depth, mask/ and mask_visib/ PNGs from the analytic hits, {len(records)} "
         f"records at visib >= {cfg.datasets.filter_visib_thr}; {len(bg_paths)} 640x480 "
         f"backgrounds; bank decimated from 4096 to {bank.faces.shape[1]} faces "
@@ -2192,7 +2236,7 @@ def phase_train(card, scene, tmp):
     aug = _aug_check(card, cfg, records, meta, bg_paths)
     ctx = {"meta": meta, "records": records, "bank": bank, "bg_paths": bg_paths,
            "common": common, "tmp": tmp}
-    run = _train_recipe(card, cfg, ctx, TRAIN_STEPS, TRAIN_LOSS_DROP, "[10/15]",
+    run = _train_recipe(card, cfg, ctx, TRAIN_STEPS, TRAIN_LOSS_DROP, "[10/17]",
                         LN_PER_FORWARD)
     with no_tf32():
         _train_parity(card, records, bank, meta)
@@ -2222,14 +2266,14 @@ def phase_train_rgbd(card, ctx):
         err, rel, ok = _ln_bwd_case(TRAIN_BATCH * r, C, torch.bfloat16, g)
         check(ok, f"B1 backward at ({TRAIN_BATCH * r}, {C}) bf16: dx err {err}, rel {rel}")
         worst = max(worst, err)
-    log(f"[11/15] B1 backward vs plain at the dual stream's shapes (both backbones: "
+    log(f"[11/17] B1 backward vs plain at the dual stream's shapes (both backbones: "
         f"{', '.join(f'({TRAIN_BATCH * r}, {C})' for r, C, _ in LN_SHAPES)}, bf16): dx max "
         f"abs err {worst:.3e}, within one bf16 ulp + 1e-5; dweight / dbias within "
         f"{LN_BWD_REL_TOL} of the sum of their terms")
-    run = _train_recipe(card, cfg, ctx, TRAIN_RGBD_STEPS, TRAIN_RGBD_LOSS_DROP, "[11/15]",
+    run = _train_recipe(card, cfg, ctx, TRAIN_RGBD_STEPS, TRAIN_RGBD_LOSS_DROP, "[11/17]",
                         2 * LN_PER_FORWARD)
     with no_tf32():
-        _train_parity(card, ctx["records"], ctx["bank"], ctx["meta"], over=DSTREAM, tag="[11/15]")
+        _train_parity(card, ctx["records"], ctx["bank"], ctx["meta"], over=DSTREAM, tag="[11/17]")
     return dict(run, ln_bwd_err=worst)
 
 
@@ -2266,7 +2310,7 @@ def phase_pool(card, ctx):
     finally:
         host.close()
         pooled.close()
-    log(f"[10/15] pool mode: {POOL_BATCHES} training batches from frames kept on the card "
+    log(f"[10/17] pool mode: {POOL_BATCHES} training batches from frames kept on the card "
         f"({pools.nbytes / 1e9:.2f} GB: {POOL_FRAMES} RGB, {2 * POOL_FRAMES} mask, "
         f"{cfg.train.device_pool_bg_frames} background slots; uploads on a side stream) equal "
         f"the host batches of the same seed and draws bit for bit (augmented crops, masks, "
@@ -2277,7 +2321,7 @@ def phase_pool(card, ctx):
     torch.cuda.synchronize()
     check(state.step == POOL_STEPS, "pool-mode training did not run")
     steps_ms = stats["step"][1:]
-    log(f"[10/15] pool-mode training (train.device_pool_frames={POOL_FRAMES}) for "
+    log(f"[10/17] pool-mode training (train.device_pool_frames={POOL_FRAMES}) for "
         f"{POOL_STEPS} steps: step mean {float(np.mean(steps_ms)):.2f} ms (steps 2.."
         f"{POOL_STEPS - 1}), H2D + pool gathers {float(np.mean(stats['h2d'][1:])):.2f} ms, host "
         f"wait {float(np.mean(stats['host_wait'][1:])):.2f} ms; pools {stats['pool']}  "
@@ -2402,7 +2446,7 @@ def phase_detector(card, scene):
                     meta.num_classes)
     check(abs(m_gt["mAP"] - 100 / 101) < 1e-9 and abs(m_gt["AP50"] - 100 / 101) < 1e-9,
           f"GT boxes as detections: {m_gt}")
-    log(f"[12/15] {len(keys)} images letterboxed to {rc.input_size}^2 in batches of "
+    log(f"[12/17] {len(keys)} images letterboxed to {rc.input_size}^2 in batches of "
         f"{DET_BATCH}; GT boxes as detections: mAP = AP50 = {m_gt['mAP']:.6f} (100/101, the "
         f"top of coco_map's 101-point interpolation)")
     res, models = {}, {}
@@ -2457,7 +2501,7 @@ def phase_detector(card, scene):
         with torch.inference_mode():
             t["launches_plain"] = _launches(lambda: plain(x))
             t["launches_tta"] = _launches(lambda: tta(x))
-        log(f"[12/15] yolox-x {norm} ({t['params'] / 1e6:.2f} M params, bf16, batch {DET_BATCH} at "
+        log(f"[12/17] yolox-x {norm} ({t['params'] / 1e6:.2f} M params, bf16, batch {DET_BATCH} at "
             f"640^2): forward {t['forward_ms']:.2f} ms; plain detection (forward + decode + "
             f"NMS, conf {DET_CONF_PLAIN}) {t['plain_ms']:.2f} ms = {t['plain_img_s']:.1f} "
             f"images/s, NMS {t['nms_plain_ms']:.3f} ms ({100 * t['nms_share_plain']:.1f}%), "
@@ -2467,7 +2511,7 @@ def phase_detector(card, scene):
             f"{t['tta_img_s']:.1f} images/s, NMS {t['nms_tta_ms']:.3f} ms "
             f"({100 * t['nms_share_tta']:.2f}%), {t['launches_tta']} kernels and copies a "
             f"batch, peak {t['peak_gb']:.2f} GB (CUDA events)  [{card}]")
-        log(f"[12/15] {norm}: the card's NMS == a numpy greedy NMS on the same raw rows, every "
+        log(f"[12/17] {norm}: the card's NMS == a numpy greedy NMS on the same raw rows, every "
             f"image (kept {t['kept_plain']} plain, {t['kept_tta']} under TTA; scores vs "
             f"numpy's decode {t['decode_err']:.1e}); random weights score mAP "
             f"{t['map_random']:.4f} on the scene's GT boxes")
@@ -2490,7 +2534,7 @@ def phase_detector(card, scene):
             check(errs[norm] <= DET_PARITY_TOL and all(torch.isfinite(o).all()
                                                        for o in outs["cuda"]),
                   f"yolox-x {norm} fp32 card vs CPU: {errs[norm]} > {DET_PARITY_TOL}")
-    log(f"[12/15] yolox-x fp32 card vs CPU on 2 images, TF32 off: raw outputs within "
+    log(f"[12/17] yolox-x fp32 card vs CPU on 2 images, TF32 off: raw outputs within "
         f"GN {errs['GN']:.2e} / BN {errs['BN']:.2e} of each level's largest magnitude "
         f"(limit {DET_PARITY_TOL})")
     torch.cuda.empty_cache()
@@ -2529,7 +2573,7 @@ def phase_two_stage(card, scene, tmp):
           and all(np.isfinite(r["bbox_est"]).all() and 0 < r["score"] <= 1
                   for v in handoff.values() for r in v), "test_yolox's handoff json")
     rate = re.search(r"([0-9.]+) images/s in detection", proc.stdout)
-    log(f"[13/15] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv (yolox-x GN "
+    log(f"[13/17] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv (yolox-x GN "
         f"bf16, TTA 5 scales x flip, batch 8, random weights): {N_IMAGES} images, {n_rows} "
         f"rows in the handoff json; {rate.group(1) if rate else '?'} images/s in detection "
         f"(host clock after the copy back), {cli_s:.1f} s for the whole CLI with the process "
@@ -2569,7 +2613,7 @@ def phase_two_stage(card, scene, tmp):
     ar_keys = ("AR", "AR_vsd", "AR_mssd", "AR_mspd")
     check(all(np.isfinite(scores[k]) and 0.0 <= scores[k] <= 1.0 for k in ar_keys),
           f"two-stage scores {scores}")
-    log(f"[13/15] test_gdrn (flagship Config(), bf16) on the handoff json with "
+    log(f"[13/17] test_gdrn (flagship Config(), bf16) on the handoff json with "
         f"model.load_dets_test=True (top 1 per object): {served.group(1)} ROIs in "
         f"{served.group(2)} batches, {served.group(3)} ROI/s, p50 {served.group(4)} ms a batch "
         f"(host clock after synchronize), {gdrn_s:.1f} s in all; {forwards[0]} forwards, "
@@ -2592,7 +2636,7 @@ def phase_two_stage(card, scene, tmp):
     check(drawn == sorted(os.path.basename(p) for p in imgs[:DEMO_IMAGES]),
           f"demo_gdrn drew {drawn}")
     n_obj = sum(int(n) for n in re.findall(r"\((\d+) objects\)", proc.stdout))
-    log(f"[13/15] python -m gdrnpp_bop2022_torch.tools.demo_gdrn with yolox-x inline (GN, bf16, "
+    log(f"[13/17] python -m gdrnpp_bop2022_torch.tools.demo_gdrn with yolox-x inline (GN, bf16, "
         f"conf 0.3) and the flagship GDRN on {DEMO_IMAGES} images: {n_obj} posed objects drawn, "
         f"{demo_s:.1f} s with the process start  [{card}]")
     return {"launches": launches, "forwards": forwards[0], "rois": len(results),
@@ -2654,7 +2698,7 @@ def _yx_pick_batch(card, nc):
         torch.cuda.empty_cache()
         if tried[B] is not None and tried[B] < YX_MEM_GB:
             break
-    log(f"[14/15] yolox-x GN bf16, one training step at {YX_PROBE_SIZE}^2: peak "
+    log(f"[14/17] yolox-x GN bf16, one training step at {YX_PROBE_SIZE}^2: peak "
         "max_memory_allocated " + ", ".join(
             f"batch {b}: " + (f"{gb:.2f} GB" if gb is not None else "out of memory")
             for b, gb in tried.items()) + f" (limit {YX_MEM_GB} GB)  [{card}]")
@@ -2683,7 +2727,7 @@ def _yx_profile(card, state, batch, B):
     from gdrnpp_bop2022_torch.engine.yolox_trainer import make_yolox_train_step
     step = make_yolox_train_step()
     wall_ms, busy, n_k, ev = profile_calls(lambda: step(state, batch), TRAIN_PROFILE_STEPS)
-    log(f"[14/15] profiled yolox-x training step at batch {B}, 640^2 ({TRAIN_PROFILE_STEPS} "
+    log(f"[14/17] profiled yolox-x training step at batch {B}, 640^2 ({TRAIN_PROFILE_STEPS} "
         f"steps, the batch on the card): {wall_ms:.2f} ms wall, {busy:.2f} ms of device time "
         f"({100 * busy / wall_ms:.1f}% busy), {n_k} kernels and copies; top (ms per step, "
         f"count): " + "; ".join(f"{k[:60]} {ms:.2f} ({c})" for k, ms, c in ev[:TRAIN_PROFILE_TOP])
@@ -2754,7 +2798,7 @@ def _yx_recipe(card, scene, tmp):
     loss_ema = _yx_loss(state.model.eval(), held, state.ema_state_dict())
     state.model.train()
     ratio = {k: loss_ema[k] / loss0[k] for k in loss0}
-    log(f"[14/15] on a batch of {B} drawn from the {YX_HELD} images held apart, initial -> EMA "
+    log(f"[14/17] on a batch of {B} drawn from the {YX_HELD} images held apart, initial -> EMA "
         "weights: " + "; ".join(f"{k} {loss0[k]:.4f} -> {loss_ema[k]:.4f} ({ratio[k]:.3f}x)"
                                 for k in loss0) + f" (each term must fall below {YX_LOSS_DROP}x)")
     check(all(np.isfinite(v) and ratio[k] < YX_LOSS_DROP for k, v in loss_ema.items()
@@ -2778,7 +2822,7 @@ def _yx_recipe(card, scene, tmp):
                                                  held["gt_labels"], held["gt_valid"]),
                             iters=5, warmup=1)
     del flat, bd, ol, cl
-    log(f"[14/15] trained configs.yolox('ycbv') (yolox-x {sum(p.numel() for p in state.model.parameters()) / 1e6:.2f} M "
+    log(f"[14/17] trained configs.yolox('ycbv') (yolox-x {sum(p.numel() for p in state.model.parameters()) / 1e6:.2f} M "
         f"params, GN, bf16, Ranger {rc.basic_lr_per_img * B:.2e} at batch {B}, warmup "
         f"{YX_WARMUP}, clip 35, EMA 0.9998, mosaic + mixup + HSV + flip, multiscale "
         f"{rc.random_size} x 32 every {rc.multiscale_period}, no-aug + L1 for the last "
@@ -2786,7 +2830,7 @@ def _yx_recipe(card, scene, tmp):
         f"{len(records)} images: sizes logged {sizes}; total_loss logged every "
         f"{YX_LOG_PERIOD}: " + " ".join(f"{r['total_loss']:.3f}" for r in rows)
         + f"  [{card}]")
-    log(f"[14/15] yolox-x training step at batch {B} (CUDA events, steps {TRAIN_SKIP + 1}.."
+    log(f"[14/17] yolox-x training step at batch {B} (CUDA events, steps {TRAIN_SKIP + 1}.."
         f"{YX_STEPS - 1}): p50 {pct(steps_ms, 50):.2f} ms, p99 {pct(steps_ms, 99):.2f} ms = "
         f"{img_s:.1f} images/s; per step mean: H2D {split['h2d']:.2f} ms, multiscale resize "
         f"{split['resize']:.2f} ms, forward + loss + backward {split['fwd_bwd']:.2f} ms (simOTA "
@@ -2809,7 +2853,7 @@ def _yx_recipe(card, scene, tmp):
                     for k, v in state.optimizer.state[p].items()))
     check(same, "the yolox checkpoint did not restore params, EMA and optimizer state bit "
           "for bit")
-    log(f"[14/15] checkpoint of iteration {YX_STEPS} "
+    log(f"[14/17] checkpoint of iteration {YX_STEPS} "
         f"({os.path.getsize(mgr.path(YX_STEPS)) / 1e9:.2f} GB) restored on the card: params, "
         f"EMA and Ranger state bit for bit")
     del fresh, model
@@ -2867,7 +2911,7 @@ def _yx_bn(card, scene, tmp):
             err = max(err, float((got.double() - want).abs().max() / want.abs().max()))
     check(len(captured) == len(bns) and err <= YX_BN_TOL,
           f"BN running statistics vs a float64 recomputation: {err} > {YX_BN_TOL}")
-    log(f"[14/15] BN variant (yolox-x, norm BN, bf16, batch {YX_BN_BATCH} at 640^2): "
+    log(f"[14/17] BN variant (yolox-x, norm BN, bf16, batch {YX_BN_BATCH} at 640^2): "
         f"{YX_BN_STEPS} iterations through train_yolox moved the running statistics of all "
         f"{len(bns)} BatchNorms; one more step's update equals 0.97 old + 0.03 x the batch's "
         f"biased mean and variance recomputed in float64 from each BN's input within "
@@ -2937,7 +2981,7 @@ def _yx_parity(card, nc=3):
     check(n_fg > 0 and torch.equal(got["cuda"][0], got["cpu"][0])
           and torch.equal(got["cuda"][1], got["cpu"][1]) and iou_err <= 1e-6,
           f"simOTA card vs CPU: fg / matched GT differ or IoU {iou_err}")
-    log(f"[14/15] card vs CPU, TF32 off: one fp32 training step of a BN YOLOX (dep 0.33, wid "
+    log(f"[14/17] card vs CPU, TF32 off: one fp32 training step of a BN YOLOX (dep 0.33, wid "
         f"0.125, batch 2 at 128^2, Ranger): loss within {loss_err:.2e} relative (limit "
         f"{YX_PAR_LOSS_TOL}), gradients within {grad_err:.2e} (limit {YX_PAR_GRAD_TOL}), "
         f"BN statistics after the step within {stats_err:.2e} (limit {YX_PAR_TOL}) of each "
@@ -3001,7 +3045,7 @@ def _yx_learns(card, tmp):
     ap50 = max(a for _, a in evals)
     check(state.step == YX_LEARN_STEPS and ap50 >= YX_LEARN_AP50,
           f"yolox_s on the two-class split: AP50 {evals} (need {YX_LEARN_AP50})")
-    log(f"[14/15] yolox_s (GN, bf16, SGD 0.02/64 per image, batch 8 at 64^2, L1 and clean "
+    log(f"[14/17] yolox_s (GN, bf16, SGD 0.02/64 per image, batch 8 at 64^2, L1 and clean "
         f"images throughout, multiscale +-1) learns {len(recs)} two-class images in "
         f"{YX_LEARN_STEPS} iterations ({wall:.1f} s): AP50 of the EMA weights "
         + ", ".join(f"{a:.3f} @ {it}" for it, a in evals)
@@ -3037,7 +3081,7 @@ def phase_detector_train(card, scene, tmp):
           "test_yolox --ckpt's handoff json")
     check("WARNING" not in proc.stdout, "test_yolox --ckpt ran on random weights")
     m_ap = proc.stdout.strip().splitlines()[-1]
-    log(f"[14/15] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv --ckpt "
+    log(f"[14/17] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv --ckpt "
         f"<out>/ckpt_yolox (the trained EMA weights, TTA): {len(handoff)} images, {n_rows} rows "
         f"in the handoff json, {m_ap} on the scene, {cli_s:.1f} s with the process start; "
         f"phase 14 in {time.perf_counter() - t0:.1f} s  [{card}]")
@@ -3106,7 +3150,7 @@ def _variant(card, tag, what, over, ln_per_fwd, rgbd, src, i, tmp):
     f32 = replace_cfg(cfg, {"model.compute_dtype": "float32"})
     with no_tf32():
         errs = _parity(f32, {k: v[:2].float() if v.is_floating_point() else v[:2]
-                             for k, v in rb.items()}, f"{tag} ({what})", "[15/15]")
+                             for k, v in rb.items()}, f"{tag} ({what})", "[15/17]")
     rec = {"what": what, "params_M": n_params / 1e6, "out_res": r, "rois": len(results),
            "forwards": n_fwd, "b1_launches": launches,
            "b1_per_forward": launches / n_fwd, "rois_per_sec": stats["rois_per_sec"],
@@ -3115,7 +3159,7 @@ def _variant(card, tag, what, over, ln_per_fwd, rgbd, src, i, tmp):
            "profile": {"wall_ms": wall_ms, "device_ms": busy_ms, "kernels": n_k,
                        "top": [(k[:60], ms, c) for k, ms, c in ev[:VARIANT_PROFILE_TOP]]},
            "seconds": time.perf_counter() - t0}
-    log(f"[15/15] {tag} {what}: {n_params / 1e6:.2f} M parameters, output {r}^2; served "
+    log(f"[15/17] {tag} {what}: {n_params / 1e6:.2f} M parameters, output {r}^2; served "
         f"{len(results)} ROIs in {nb} batches of {BATCH} + warm-up: {n_fwd} forwards, "
         f"layer_norm launches {launches} = {ln_per_fwd} x {n_fwd}; rows finite, "
         f"max|R^T R - I| = {orth:.2e}; serving {stats['rois_per_sec']:.1f} ROI/s, p50 "
@@ -3153,11 +3197,478 @@ def phase_variants(card, scene, bank, tmp):
     for i, (tag, what, over, ln_per_fwd, is_rgbd) in enumerate(VARIANTS):
         out[tag] = _variant(card, tag, what, over, ln_per_fwd, is_rgbd,
                             rgbd if is_rgbd else rgb, i, tmp)
-    log(f"[15/15] phase 15 (variants V1-V6) in {time.perf_counter() - t0:.1f} s  [{card}]")
+    log(f"[15/17] phase 15 (variants V1-V6) in {time.perf_counter() - t0:.1f} s  [{card}]")
     return out
 
 
-def _parity(cfg, batch, tag, phase="[9/15]"):
+# ---------------------------------------------------------------------------
+# the BOP sweep and the per-object path (phase 16)
+# ---------------------------------------------------------------------------
+
+def _quiet(fn, *args):
+    """fn(*args) with its standard output kept: (result, the output)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def phase_sweep(card, scene, tmp):
+    """Phase 16: python -m ...tools.run_bop_sweep over ycbv and lmo (yolox-x
+    -> handoff json -> the convnext_base recipe -> scores, each stage a
+    process of its own), lmo's GT poses scored as estimates (AR 1.0), then
+    the per-object path: two ycbvSO configs
+    served, their CSVs merged and their times normalised, the merged CSV
+    scored; and strip_ckpt on phase 10's checkpoint, served like the
+    checkpoint itself."""
+    import re
+    from gdrnpp_bop2022_torch.bop.inout import load_bop_results, load_json, save_bop_results
+    from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm
+    from gdrnpp_bop2022_torch.ops.raster import render_depth_xyz_cuda
+    from gdrnpp_bop2022_torch.tools import (merge_so_results, process_results_time, score_csv,
+                                            strip_ckpt, test_gdrn)
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.dirname(scene["models_dir"]))    # holds ycbv/
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    lmo = make_rgbd_scene(os.path.join(root, "lmo"), np.random.RandomState(SEED + 16),
+                          dataset="lmo", scene_id=LMO_SCENE)
+    log(f"[16/17] lmo scene: {N_IMAGES} 480x640 RGB-D images x {len(lmo['meta'].id2obj)} "
+        f"ellipsoids (lmo's {len(lmo['meta'].id2obj)} object ids and camera, analytic depth) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    out = os.path.join(tmp, "sweep")
+    cmd = [sys.executable, "-m", "gdrnpp_bop2022_torch.tools.run_bop_sweep",
+           "--datasets", *SWEEP_DATASETS, "--root", root, "--mode", "eval",
+           "--yolox-size", "yolox_x", "--yolox-input-size", "640", "--yolox-allow-random",
+           "--gdrn-seed", str(SEED), "--out", out,
+           "--opts", f"output_dir={os.path.join(tmp, 'sweep_gdrn_{ds}')!r}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=here)
+    sweep_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"run_bop_sweep failed (rc {proc.returncode}): "
+                                f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    summary = load_json(os.path.join(out, "sweep_summary.json"))
+    check(set(SWEEP_DATASETS) <= set(summary) and summary.get("mean_AR") is not None
+          and np.isfinite(summary["mean_AR"]), f"sweep summary: {summary}")
+    det_rates = re.findall(r"([0-9.]+) images/s in detection", proc.stdout)
+    roi_rates = re.findall(r"batches of 64 \(direct, cuda(?::\d+)?\): ([0-9.]+) ROI/s",
+                           proc.stdout)
+    check(len(det_rates) == len(roi_rates) == len(SWEEP_DATASETS),
+          f"the sweep's stages ran on the card? {proc.stdout[-2000:]}")
+    per = {}
+    for i, ds in enumerate(SWEEP_DATASETS):
+        handoff = load_json(os.path.join(out, f"yolox_{ds}", f"yolox_{ds}_test_bboxes.json"))
+        check(len(handoff) == N_IMAGES and all(
+            0 < len(v) <= 100 and all(np.isfinite(r["bbox_est"]).all() for r in v)
+            for v in handoff.values()), f"{ds}: the sweep's handoff json")
+        inf = os.path.join(tmp, f"sweep_gdrn_{ds}", "inference", f"{ds}_test")
+        scores, st = load_json(os.path.join(inf, "scores.json")), load_json(
+            os.path.join(inf, "stats.json"))
+        ar_keys = ("AR", "AR_vsd", "AR_mssd", "AR_mspd")
+        check(all(0.0 <= scores[k] <= 1.0 for k in ar_keys) and scores["AR"] == summary[ds]["AR"],
+              f"{ds}: scores {scores}")
+        check(st["forwards"] >= 2 and st["launches"]["layer_norm"] == LN_PER_FORWARD * st["forwards"],
+              f"{ds}: B1 launches in test_gdrn: {st}")
+        check(st["launches"]["render_depth_xyz"] > 0, f"{ds}: B2 never ran in the scorer: {st}")
+        per[ds] = {"handoff_rows": sum(len(v) for v in handoff.values()), "rois": st["n_rois"],
+                   "forwards": st["forwards"], "b1_launches": st["launches"]["layer_norm"],
+                   "b2_launches": st["launches"]["render_depth_xyz"],
+                   "detect_images_per_s": float(det_rates[i]), "roi_per_s": float(roi_rates[i]),
+                   **{k: scores[k] for k in ar_keys}}
+        log(f"[16/17] sweep {ds}: test_yolox (yolox-x, bf16, random weights) {per[ds]['handoff_rows']} "
+            f"rows in the handoff json, {det_rates[i]} images/s in detection; test_gdrn "
+            f"({ds}_convnext_base, bf16, seed {SEED}) {st['n_rois']} ROIs at {roi_rates[i]} ROI/s, "
+            f"{st['forwards']} forwards, B1 launches {st['launches']['layer_norm']} = 40 x "
+            f"{st['forwards']}; scoring: B2 launches {st['launches']['render_depth_xyz']}; "
+            + " ".join(f"{k}={scores[k]:.4f}" for k in ar_keys) + f"  [{card}]")
+    log(f"[16/17] python -m gdrnpp_bop2022_torch.tools.run_bop_sweep --datasets "
+        f"{' '.join(SWEEP_DATASETS)} --mode eval (4 stage processes): mean_AR "
+        f"{summary['mean_AR']:.4f}, {sweep_s:.1f} s  [{card}]")
+
+    # lmo's scoring path (its object ids, meta, VSD settings, B2 at its
+    # camera) scores a correct pose as correct: the scene's GT poses as
+    # estimates through score_csv --dataset lmo
+    t0 = time.perf_counter()
+    gt = load_json(os.path.join(lmo["split_dir"], f"{LMO_SCENE:06d}", "scene_gt.json"))
+    gt_csv = os.path.join(tmp, "lmo_gt.csv")
+    save_bop_results(gt_csv, [
+        {"scene_id": LMO_SCENE, "im_id": int(im), "obj_id": g["obj_id"], "score": 1.0,
+         "R": np.reshape(g["cam_R_m2c"], (3, 3)), "t": g["cam_t_m2c"], "time": 0.01}
+        for im, gs in gt.items() for g in gs])
+    render_depth_xyz_cuda.launches = 0
+    lmo_gt, _ = _quiet(score_csv.main, ["--csv", gt_csv, "--dataset", "lmo", "--root", root])
+    lmo_gt_b2 = render_depth_xyz_cuda.launches
+    check(lmo_gt_b2 > 0 and all(lmo_gt[k] == 1.0 for k in ar_keys),
+          f"lmo GT poses as estimates: B2 launches {lmo_gt_b2}, "
+          f"{({k: lmo_gt[k] for k in ar_keys})}")
+    log(f"[16/17] score_csv --dataset lmo on the lmo scene's GT poses as estimates "
+        f"({sum(len(v) for v in gt.values())} rows): AR = AR_vsd = AR_mssd = AR_mspd = 1.0, "
+        f"B2 launches {lmo_gt_b2}; {time.perf_counter() - t0:.1f} s  [{card}]")
+
+    # the per-object path: one-class models with class-agnostic heads, each
+    # serving every object's detections (nothing reads SO_OBJECT)
+    t0 = time.perf_counter()
+    n_rois = N_IMAGES * DETS_PER_IMAGE
+    so_csvs, so_b1, so_fwd = [], 0, 0
+    for obj in SO_OBJECTS:
+        so_out = os.path.join(tmp, "so", obj)
+        layer_norm.launches = 0                  # count this configuration only
+        (results, _), _ = _quiet(test_gdrn.main, [
+            "--config", f"ycbvSO/{obj}", "--seed", str(SEED), "--opts",
+            f"datasets.root={root!r}", f"output_dir={so_out!r}",
+            f"datasets.det_files_test=({scene['det_file']!r},)", "val.save_results_only=True"])
+        launches = layer_norm.launches
+        inf = os.path.join(so_out, "inference", "ycbv_test")
+        st = load_json(os.path.join(inf, "stats.json"))
+        check(st["n_rois"] == len(results) == n_rois and st["forwards"] >= 2
+              and launches == st["launches"]["layer_norm"] == LN_PER_FORWARD * st["forwards"],
+              f"ycbvSO/{obj}: {len(results)} rows, {launches} B1 launches, stats {st}")
+        _check_rows(results, n_rois, tmp, f"so_{obj}")
+        so_b1 += launches
+        so_fwd += st["forwards"]
+        so_csvs.append(os.path.join(inf, "poses.csv"))
+    merged = os.path.join(tmp, "so", "merged.csv")
+    n_merged, _ = _quiet(merge_so_results.main, [*so_csvs, "--out", merged])
+    final = os.path.join(tmp, "so", "gdrn-ycbv-test.csv")
+    _quiet(process_results_time.main, [final, merged])
+    rows = load_bop_results(final)
+    times = {}
+    for r in rows:
+        times.setdefault((r["scene_id"], r["im_id"]), set()).add(r["time"])
+    check(len(rows) == len(SO_OBJECTS) * n_rois and all(len(v) == 1 for v in times.values()),
+          f"merged SO CSV: {len(rows)} rows, per-image times {list(times.values())[:3]}")
+    render_depth_xyz_cuda.launches = 0
+    so_scores, _ = _quiet(score_csv.main, ["--csv", final, "--dataset", "ycbv", "--root", root])
+    so_b2 = render_depth_xyz_cuda.launches
+    check(so_b2 > 0 and all(0.0 <= so_scores[k] <= 1.0 for k in ("AR", "AR_vsd")),
+          f"score_csv on the merged SO CSV: B2 launches {so_b2}, {so_scores}")
+    so_s = time.perf_counter() - t0
+    log(f"[16/17] per-object path: test_gdrn --config ycbvSO/{{{','.join(SO_OBJECTS)}}} (one "
+        f"class, class-agnostic heads, bf16, seed {SEED}) {n_rois} ROIs each, {so_fwd} forwards, "
+        f"B1 launches {so_b1} = 40 x {so_fwd}; merge_so_results {n_merged} rows, "
+        f"process_results_time: one time per image over {len(times)} images; score_csv on the "
+        f"merged CSV: B2 launches {so_b2}, AR={so_scores['AR']:.4f} AR_vsd="
+        f"{so_scores['AR_vsd']:.4f}; {so_s:.1f} s  [{card}]")
+
+    # strip_ckpt on phase 10's checkpoint: the released EMA weights serve
+    # the poses the checkpoint serves
+    t0 = time.perf_counter()
+    ckpt_dir = os.path.join(tmp, "train_out", "ckpt")
+    full = strip_ckpt.checkpoint_file(ckpt_dir)
+    stripped, _ = _quiet(strip_ckpt.main, ["--ckpt", ckpt_dir, "--use-ema", "--out",
+                                           os.path.join(tmp, "release", "model_wo_optim.pth")])
+    poses = {}
+    for tag, w in (("checkpoint", full), ("stripped", stripped)):
+        (results, _), _ = _quiet(test_gdrn.main, [
+            "--config", "ycbv_convnext_base", "--weights", w, "--opts", f"datasets.root={root!r}",
+            f"output_dir={os.path.join(tmp, 'strip_' + tag)!r}",
+            f"datasets.det_files_test=({scene['det_file']!r},)", "val.save_results_only=True"])
+        _check_rows(results, n_rois, tmp, f"strip_{tag}")
+        poses[tag] = (np.stack([r["R"] for r in results]), np.stack([r["t"] for r in results]))
+    d = max(float(np.abs(a - b).max()) for a, b in zip(poses["checkpoint"], poses["stripped"]))
+    check(d <= STRIP_POSE_TOL, f"stripped weights serve other poses: max diff {d}")
+    log(f"[16/17] strip_ckpt --use-ema on phase 10's checkpoint ({os.path.getsize(full) / 1e6:.1f} "
+        f"MB with the optimizer) -> {os.path.getsize(stripped) / 1e6:.1f} MB; test_gdrn --weights "
+        f"on each serves {n_rois} ROIs, poses equal within {d:.2e}; {time.perf_counter() - t0:.1f} s")
+    log(f"[16/17] phase 16 in {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return {"sweep": per, "mean_AR": summary["mean_AR"], "sweep_s": sweep_s,
+            "b1_sweep": sum(p["b1_launches"] for p in per.values()),
+            "b2_sweep": sum(p["b2_launches"] for p in per.values()),
+            "lmo_gt_b2": lmo_gt_b2, "b1_so": so_b1, "b2_so": so_b2, "so_scores": {k: so_scores[k] for k in ("AR", "AR_vsd")},
+            "so_s": so_s, "strip_pose_diff": d}
+
+
+# ---------------------------------------------------------------------------
+# export and the auxiliary ops (phase 17)
+# ---------------------------------------------------------------------------
+
+def phase_export(card, tmp):
+    """python -m ...tools.export_model of the flagship Config() at batch 64
+    with seeded weights, reloaded and run on the card: B1 launches per
+    forward, the same poses as the eager model (bf16; and in fp32 with TF32
+    off), its time beside the eager forward's."""
+    import contextlib
+    from gdrnpp_bop2022_torch.config import Config, parse_opts, replace_cfg
+    from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
+    from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm
+    from gdrnpp_bop2022_torch.tools import export_model
+    from gdrnpp_bop2022_torch.utils.weights import seeded_state_dict
+    rec = {}
+    for dtype, tol in (("bfloat16", EXPORT_BF16_TOL), ("float32", EXPORT_F32_TOL)):
+        opts = [f"model.compute_dtype={dtype!r}"]
+        out = os.path.join(tmp, f"export_{dtype}")
+        with no_tf32() if dtype == "float32" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            res, _ = _quiet(export_model.main, [
+                "--config", "default", "--seed", str(SEED), "--out", out,
+                "--batch-size", str(BATCH), "--opts", *opts])
+            export_s = time.perf_counter() - t0
+            # the program as the CLI's self-check reloaded it from disk
+            program, state = res["program"], res["state"]
+            n_nodes = sum("gdrnpp.layer_norm" in str(n.target) for n in program.graph.nodes)
+            cfg = replace_cfg(Config(), parse_opts(opts))
+            inputs = export_model.example_inputs(cfg, BATCH, "cuda")
+            model = build_gdrn(cfg)
+            model.load_state_dict(seeded_state_dict(model, SEED), strict=True)
+            with torch.inference_mode():
+                layer_norm.launches = 0            # one forward of the reloaded program
+                rot, trans = program(state, *inputs)
+                torch.cuda.synchronize()
+                launches = layer_norm.launches
+                ref = model(*inputs)
+                d_rot = float((rot.float() - ref["rot"].float()).abs().max())
+                d_t = float((trans.float() - ref["trans"].float()).abs().max())
+                t_scale = float(ref["trans"].float().abs().max())
+                times = {}
+                if dtype == "bfloat16":        # in turns: eager, program, program, eager
+                    for k, fn in (("eager", lambda: model(*inputs)),
+                                  ("program", lambda: program(state, *inputs)),
+                                  ("program2", lambda: program(state, *inputs)),
+                                  ("eager2", lambda: model(*inputs))):
+                        times[k] = cuda_ms(fn, iters=10)
+                    for k, fn in (("eager", lambda: model(*inputs)),
+                                  ("program", lambda: program(state, *inputs))):
+                        wall, dev, n_k, ev = profile_calls(fn, 3)
+                        times[f"{k}_profile"] = {"wall_ms": wall, "device_ms": dev, "kernels": n_k,
+                                                 "top": [(e[:50], ms, c) for e, ms, c in ev[:5]]}
+        check(n_nodes == LN_PER_FORWARD and launches == LN_PER_FORWARD,
+              f"export {dtype}: {n_nodes} gdrnpp.layer_norm nodes, {launches} B1 launches a forward")
+        check(torch.isfinite(rot).all() and torch.isfinite(trans).all() and d_rot <= tol
+              and d_t <= tol * max(t_scale, 1.0),
+              f"export {dtype}: reloaded vs eager rot {d_rot}, trans {d_t} (tol {tol})")
+        size = os.path.getsize(os.path.join(out, export_model.PROGRAM)) / 1e6
+        rec[dtype] = {"export_s": export_s, "program_mb": size, "b1_nodes": n_nodes,
+                      "b1_launches": launches, "rot_diff": d_rot, "trans_diff": d_t, **times}
+        log(f"[17/17] export_model --config default --batch-size {BATCH} ({dtype}"
+            f"{', TF32 off' if dtype == 'float32' else ''}): traced, saved, reloaded and self-checked in {export_s:.1f} s, "
+            f"{size:.1f} MB program + weights.pth; reloaded: {n_nodes} gdrnpp.layer_norm nodes, B1 "
+            f"launches {launches} a forward; vs the eager model rot {d_rot:.2e}, trans {d_t:.2e} "
+            f"(tol {tol:.3g})"
+            + (f"; forward at batch {BATCH} (CUDA events, 10 calls, in turns): eager "
+               f"{times['eager']:.3f} / {times['eager2']:.3f} ms, reloaded program "
+               f"{times['program']:.3f} / {times['program2']:.3f} ms; profiled (3 calls): "
+               + "; ".join(f"{k} {times[k + '_profile']['wall_ms']:.2f} ms wall, "
+                           f"{times[k + '_profile']['device_ms']:.2f} ms device, "
+                           f"{times[k + '_profile']['kernels']} kernels and copies, top "
+                           + ", ".join(f"{e} {ms:.2f} ({c})"
+                                       for e, ms, c in times[k + '_profile']['top'][:3])
+                           for k in ("eager", "program")) if times else "")
+            + f"  [{card}]")
+        del program, state, model
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _canny_near(images, thr):
+    """Pixels where canny_edges' decision is within CANNY_MARGIN of a
+    boundary, recomputed in float64: the threshold, a direction bin's edge,
+    or a tie with a neighbour's magnitude."""
+    from gdrnpp_bop2022_torch.ops.edges import gauss_kernel, sep_blur, shift, sobel_gradients
+    img = images.double()
+    img = img.mean(dim=-1) if img.dim() == 4 else img
+    gx, gy = sobel_gradients(sep_blur(img, gauss_kernel()))
+    mag = torch.sqrt(gx * gx + gy * gy)
+    a = torch.atan2(gy, gx) / (math.pi / 4)
+    near = ((mag - thr).abs() <= CANNY_MARGIN * max(thr, 1.0)) | (
+        ((a - a.floor()) - 0.5).abs() <= CANNY_MARGIN)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy or dx:
+                near |= (mag - shift(mag, dy, dx)).abs() <= CANNY_MARGIN * mag.clamp_min(1.0)
+    return near
+
+
+def _aux_inputs(rs):
+    """The auxiliary ops' inputs at their shapes, numpy, from rs."""
+    n_pts, _ = FPS_SHAPE
+    B, N, M = CHAMFER_SHAPE
+    nb, H, W = AUX_IMAGES
+    rb, rh, rw, nk, nh = RANSAC_SHAPE
+    K = np.array([[572.4, 0, 325.3], [0, 573.6, 242.0], [0, 0, 1]], np.float32)
+    yy, xx = np.mgrid[0:H, 0:W]
+    depth = (0.8 + 0.3 * np.sin(xx / 90.0)[None] * np.cos(yy / 70.0)[None]
+             + 0.05 * rs.rand(nb, H, W)).astype(np.float32)
+    depth[:, :40] = 0.0                                  # invalid rows
+    R_rel = []
+    for _ in range(nb):                                  # up to ~6 degrees, Rodrigues
+        ax = rs.randn(3)
+        ax /= np.linalg.norm(ax)
+        S = np.array([[0, -ax[2], ax[1]], [ax[2], 0, -ax[0]], [-ax[1], ax[0], 0]])
+        a = rs.uniform(0.0, 0.1)
+        R_rel.append(np.eye(3) + np.sin(a) * S + (1 - np.cos(a)) * S @ S)
+    R_rel = np.stack(R_rel)
+    imgs = np.zeros((nb, H, W, 3), np.float32)
+    for i in range(nb):
+        for _ in range(12):
+            cy, cx, r = rs.uniform(0, H), rs.uniform(0, W), rs.uniform(20, 120)
+            imgs[i][(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = rs.uniform(0, 255, 3)
+    imgs += rs.normal(0, 3, imgs.shape).astype(np.float32)
+    ys, xs = np.mgrid[0:rh, 0:rw].astype(np.float32)
+    mask = np.zeros((rb, rh, rw), np.float32)
+    vertex = np.zeros((rb, rh, rw, nk, 2), np.float32)
+    idx1 = np.zeros((rb, nk, nh), np.int64)
+    idx2 = np.zeros_like(idx1)
+    for i in range(rb):
+        cy, cx, r = rs.uniform(150, rh - 150), rs.uniform(150, rw - 150), rs.uniform(50, 70)
+        mask[i] = (ys - cy) ** 2 + (xs - cx) ** 2 < r * r
+        for k in range(nk):
+            kp = np.array([cx + rs.uniform(-100, 100), cy + rs.uniform(-100, 100)], np.float32)
+            d = kp - np.stack([xs, ys], -1)
+            d /= np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-8)
+            out = rs.rand(rh, rw) < 0.2                  # outlier votes
+            ang = rs.uniform(0, 2 * np.pi, (rh, rw))
+            d[out] = np.stack([np.cos(ang), np.sin(ang)], -1)[out]
+            vertex[i, :, :, k] = d
+            fg = np.flatnonzero(mask[i].ravel() > 0.5)
+            idx1[i, k], idx2[i, k] = rs.choice(fg, nh), rs.choice(fg, nh)
+    return {"fps": rs.uniform(-0.1, 0.1, (n_pts, 3)).astype(np.float32),
+            "xyz1": rs.uniform(-0.1, 0.1, (B, N, 3)).astype(np.float32),
+            "xyz2": rs.uniform(-0.1, 0.1, (B, M, 3)).astype(np.float32),
+            "mask2": rs.rand(B, M) > 0.1,
+            "depth": depth, "K": np.tile(K, (nb, 1, 1)), "R_rel": R_rel.astype(np.float32),
+            "t_rel": rs.uniform(-0.02, 0.02, (nb, 3)).astype(np.float32), "imgs": imgs,
+            "mask": mask, "vertex": vertex, "idx1": idx1, "idx2": idx2}
+
+
+def phase_aux(card):
+    """Each auxiliary op on the card against the CPU on the same inputs
+    (fp32, TF32 off), timed by CUDA events; the RLE codec through its native
+    library against its numpy path."""
+    from gdrnpp_bop2022_torch.ops.chamfer import chamfer_distance
+    from gdrnpp_bop2022_torch.ops.edges import canny_edges
+    from gdrnpp_bop2022_torch.ops.flow import flow_from_depth
+    from gdrnpp_bop2022_torch.ops.fps import fps_indices
+    from gdrnpp_bop2022_torch.ops.ransac_voting import ransac_voting_layer
+    from gdrnpp_bop2022_torch.utils import mask_rle
+    t_phase = time.perf_counter()
+    inp = _aux_inputs(np.random.RandomState(SEED + 17))
+    gpu = {k: torch.from_numpy(v).cuda() for k, v in inp.items()}
+    cpu = {k: torch.from_numpy(v) for k, v in inp.items()}
+    rec = {}
+
+    def record(name, ms, cpu_s, err, what, n_bytes, n_ops):
+        """n_bytes: inputs read once and outputs written once; n_ops: the
+        plain algorithm's fp32 operations on these inputs."""
+        b_s, o_s = n_bytes / H100_BYTES_PER_S, n_ops / H100_FP32_FLOPS
+        rec[name] = {"ms": ms, "cpu_s": cpu_s, "err": err, "bound_ms": max(b_s, o_s) * 1e3,
+                     "bound_by": "bytes" if b_s >= o_s else "operations"}
+        log(f"[17/17] {name} {what}: card {ms:.3f} ms (CUDA events), bound "
+            f"{rec[name]['bound_ms']:.4f} ms ({rec[name]['bound_by']}), the CPU {cpu_s:.2f} s "
+            f"(host clock); card vs CPU: {err}  [{card}]")
+
+    with no_tf32(), torch.inference_mode():
+        k = FPS_SHAPE[1]
+        g = fps_indices(gpu["fps"], k)
+        t0 = time.perf_counter()
+        c = fps_indices(cpu["fps"], k)
+        cpu_s = time.perf_counter() - t0
+        check(torch.equal(g.cpu(), c), "fps: the card's indices differ from the CPU's")
+        n = FPS_SHAPE[0]
+        record("fps", cuda_ms(lambda: fps_indices(gpu["fps"], k), iters=5), cpu_s,
+               "indices equal", f"K = {k} of {n} points",
+               n * 12 + k * 8, (k - 1) * n * 10)       # per step and point: 3 sub, 3 mul, 2 add, min, max
+
+        args = (gpu["xyz1"], gpu["xyz2"], None, gpu["mask2"])
+        g = [v.cpu() for v in chamfer_distance(*args)]
+        t0 = time.perf_counter()
+        c = chamfer_distance(cpu["xyz1"], cpu["xyz2"], None, cpu["mask2"])
+        cpu_s = time.perf_counter() - t0
+        # d = |a|^2 + |b|^2 - 2 a.b rounds at the scale of the squared norms
+        scale = float(max((cpu["xyz1"] ** 2).sum(-1).max(), (cpu["xyz2"] ** 2).sum(-1).max()))
+        worst = 0.0
+        for (dg, ig, dc, ic) in ((g[0], g[1], c[0], c[1]), (g[2], g[3], c[2], c[3])):
+            tol = CHAMFER_REL_TOL * torch.maximum(dc.abs(), torch.tensor(scale))
+            check(((dg - dc).abs() <= tol).all(), "chamfer: distances differ")
+            worst = max(worst, float(((dg - dc).abs() / tol).max()))
+            check(((ig == ic) | ((dg - dc).abs() <= tol)).all(), "chamfer: indices differ")
+        n_idx = int((g[1] != c[1]).sum() + (g[3] != c[3]).sum())
+        B, N, M = CHAMFER_SHAPE
+        record("chamfer", cuda_ms(lambda: chamfer_distance(*args), iters=5), cpu_s,
+               f"distances within {worst:.2f} of the tolerance, {n_idx} indices differ at "
+               f"equal distances", f"{B} x {N} x {M}",
+               B * (N + M) * 12 + B * M + B * (N + M) * 12,
+               B * N * M * 10)                        # a.b 5, |a|^2 + |b|^2 - 2 a.b 3, two mins
+
+        fargs = (gpu["depth"], gpu["K"], gpu["R_rel"], gpu["t_rel"])
+        fg, vg = flow_from_depth(*fargs)
+        t0 = time.perf_counter()
+        fc, vc = flow_from_depth(cpu["depth"], cpu["K"], cpu["R_rel"], cpu["t_rel"])
+        cpu_s = time.perf_counter() - t0
+        err = float((fg.cpu() - fc).abs().max())
+        check(torch.equal(vg.cpu(), vc) and err <= FLOW_TOL, f"flow: max diff {err} px")
+        px = int(np.prod(AUX_IMAGES))
+        record("flow", cuda_ms(lambda: flow_from_depth(*fargs), iters=10), cpu_s,
+               f"max {err:.2e} px", f"{AUX_IMAGES[0]} x {AUX_IMAGES[1]}x{AUX_IMAGES[2]}",
+               px * (4 + 8 + 1), px * 30)             # backproject 6, rotate 15, project 8, test 1
+
+        thr = 10.0
+        eg = canny_edges(gpu["imgs"], thr).cpu()
+        t0 = time.perf_counter()
+        ec = canny_edges(cpu["imgs"], thr)
+        cpu_s = time.perf_counter() - t0
+        diff = eg != ec
+        n_diff = int(diff.sum())
+        check(not (diff & ~_canny_near(cpu["imgs"], thr)).any(),
+              f"canny: {n_diff} pixels differ, some away from every decision boundary")
+        record("canny", cuda_ms(lambda: canny_edges(gpu["imgs"], thr), iters=10), cpu_s,
+               f"{n_diff} of {ec.numel()} pixels differ, each within {CANNY_MARGIN} of a "
+               f"decision boundary; {int(ec.sum())} edge pixels",
+               f"{AUX_IMAGES[0]} x {AUX_IMAGES[1]}x{AUX_IMAGES[2]} RGB",
+               px * (12 + 1), px * 70)    # gray 3, blur 18, Sobel 16, mag 3, angle ~20, NMS ~10
+
+        rb, rh, rw, nk, nh = RANSAC_SHAPE
+        rargs = (gpu["mask"], gpu["vertex"], nh)
+        rkw = {"idx1": gpu["idx1"], "idx2": gpu["idx2"]}
+        pg = ransac_voting_layer(*rargs, **rkw).cpu()
+        n = RANSAC_CPU_IMAGES
+        t0 = time.perf_counter()
+        pc = ransac_voting_layer(cpu["mask"][:n], cpu["vertex"][:n], nh,
+                                 idx1=cpu["idx1"][:n], idx2=cpu["idx2"][:n])
+        cpu_s = time.perf_counter() - t0
+        err = float((pg[:n] - pc).abs().max())
+        check(torch.isfinite(pg).all() and err <= RANSAC_TOL, f"ransac voting: max diff {err} px")
+        record("ransac_voting", cuda_ms(lambda: ransac_voting_layer(*rargs, **rkw), iters=3,
+                                        warmup=1), cpu_s,
+               f"max {err:.2e} px on the CPU's {n} image(s) x {RANSAC_SHAPE[3]} keypoints",
+               f"{RANSAC_SHAPE[0]} x {RANSAC_SHAPE[1]}x{RANSAC_SHAPE[2]} x {RANSAC_SHAPE[3]} "
+               f"keypoints x {nh} hypotheses, fixed draws",
+               rb * rh * rw * (nk * 8 + 4) + 2 * rb * nk * nh * 8 + rb * nk * 8,
+               rb * nk * nh * rh * rw * 12)    # a hypothesis x pixel: diff 2, norm 5, cos 3, test 2
+
+    rs = np.random.RandomState(SEED + 18)
+    yy, xx = np.mgrid[0:AUX_IMAGES[1], 0:AUX_IMAGES[2]]
+    masks = [(yy - rs.uniform(0, 480)) ** 2 / rs.uniform(20, 150) ** 2
+             + (xx - rs.uniform(0, 640)) ** 2 / rs.uniform(20, 150) ** 2
+             + 0.2 * rs.rand(*yy.shape) < 1.0 for _ in range(RLE_MASKS)]
+    check(mask_rle.native_loaded(), "the RLE codec's native library did not load")
+    t0 = time.perf_counter()
+    enc = [mask_rle.encode(m) for m in masks]
+    dec = [mask_rle.decode(e) for e in enc]
+    native_ms = (time.perf_counter() - t0) * 1e3 / len(masks)
+    lib = mask_rle._LIB
+    mask_rle._LIB = None                       # the numpy path
+    try:
+        t0 = time.perf_counter()
+        enc_np = [mask_rle.encode(m) for m in masks]
+        numpy_ms = (time.perf_counter() - t0) * 1e3 / len(masks)
+    finally:
+        mask_rle._LIB = lib
+    check(all(np.array_equal(d, m) for d, m in zip(dec, masks))
+          and [e["counts"] for e in enc] == [e["counts"] for e in enc_np],
+          "RLE: round trip or native vs numpy bytes differ")
+    rec["rle"] = {"native_ms": native_ms, "numpy_ms": numpy_ms}
+    log(f"[17/17] RLE codec (native/rle.cpp built with g++): {len(masks)} masks of "
+        f"{masks[0].shape[0]}x{masks[0].shape[1]}, round trip exact, bytes equal to the numpy "
+        f"path; encode + decode {native_ms:.3f} ms a mask native, encode {numpy_ms:.3f} ms "
+        f"numpy (host clock)")
+    log(f"[17/17] auxiliary ops in {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return rec
+
+
+def _parity(cfg, batch, tag, phase="[9/17]"):
     from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
     from gdrnpp_bop2022_torch.utils.weights import seeded_state_dict
     outs = {}
@@ -3298,7 +3809,7 @@ def main():
         scene = make_rgbd_scene(os.path.join(tmp, "ycbv"), np.random.RandomState(SEED + 2))
         bank = ModelBank.from_bop_models_dir(scene["models_dir"])
         check(bank.faces.shape == (21, 4096, 3), f"bank faces {bank.faces.shape}")
-        log(f"[3/15] RGB-D scene and model bank written and loaded in "
+        log(f"[3/17] RGB-D scene and model bank written and loaded in "
             f"{time.perf_counter() - t0:.1f} s (analytic depth, no rendering)")
         b2 = phase_raster(card, scene, bank)
         rb, serve = phase_slice(card, os.path.join(tmp, "rgb"))
@@ -3317,8 +3828,14 @@ def main():
         two = phase_two_stage(card, scene, tmp)
         det_train = phase_detector_train(card, scene, tmp)
         variants = phase_variants(card, scene, bank, tmp)
+        torch.cuda.empty_cache()
+        sweep = phase_sweep(card, scene, tmp)
+        t17 = time.perf_counter()
+        export = phase_export(card, tmp)
+        aux = phase_aux(card)
+        log(f"[17/17] phase 17 in {time.perf_counter() - t17:.1f} s  [{card}]")
     share = 100.0 * 2 * b2["ms"] / times["p50_ms"]
-    log(f"[5/15] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
+    log(f"[5/17] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
         f"{times['p50_ms']:.2f} ms p50 batch = {share:.2f}%  [{card}]")
     phase_parity(rb, rb_rgbd)
     bad = sorted(m for m in sys.modules
@@ -3327,6 +3844,9 @@ def main():
     log("detector and two-stage: " + json.dumps({"detector": det, "two_stage": two}))
     log("detector training: " + json.dumps(det_train))
     log("variants: " + json.dumps(variants) + f"  [{card}]")
+    log("sweep, per-object path and strip: " + json.dumps(sweep) + f"  [{card}]")
+    log("export and auxiliary ops: " + json.dumps({"export": export, "aux": aux})
+        + f"  [{card}]")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "layer_norm", "route": "cuda",
@@ -3340,7 +3860,9 @@ def main():
                               "train": train["launches"]["fwd"],
                               "train_rgbd": rgbd["launches"]["fwd"],
                               "two_stage": two["launches"],
-                              "variants": sum(v["b1_launches"] for v in variants.values())}},
+                              "variants": sum(v["b1_launches"] for v in variants.values()),
+                              "sweep": sweep["b1_sweep"], "so": sweep["b1_so"],
+                              "export": export["bfloat16"]["b1_launches"]}},
         {"name": "layer_norm_backward", "route": "cuda",
          "source": "gdrnpp_bop2022_torch/csrc/layer_norm.cu",
          "replaces": "gdrnpp_bop2022_tpu/ops/pallas_ln.py:26 (its VJP)",
@@ -3362,7 +3884,8 @@ def main():
          "library_ms": None,
          "launches_by_path": {"rgbd_depth_refine": r_launches, "scoring": score["launches"],
                               "train": train["launches"]["raster"],
-                              "train_rgbd": rgbd["launches"]["raster"]},
+                              "train_rgbd": rgbd["launches"]["raster"],
+                              "sweep_scoring": sweep["b2_sweep"], "so_scoring": sweep["b2_so"]},
          "vsd_shapes": b2["vsd_shapes"], "train_attribute_mode": train["b2"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

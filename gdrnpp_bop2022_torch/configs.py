@@ -11,6 +11,18 @@ convnext_base over RGB and backprojected depth ROIs with concat fusion,
 depth refinement at evaluation (2 iterations). ``tests/test_torch_config.py``
 holds each equal to its file's ``cfg`` field by field.
 
+``<ds>_convnext_base`` for ``ds`` in lm, lmo, tless, tudl, icbin, itodd and
+hb is the same recipe for that dataset, as ``configs/gdrn/<ds>_convnext_base.py``
+sets it (its class count, train_pbr and test splits; no real train split and
+no symmetric-object list). ``so(dataset, obj)`` is the per-object ("SO")
+config of one object, as ``tools/gen_so_configs.py`` writes it into
+``configs/gdrn/<dataset>SO/<obj>.py``: one class with class-agnostic heads.
+It stands for that generated file tree. Like the JAX package, nothing reads
+the files' ``SO_OBJECT`` / ``SO_OBJ_ID``: a per-object config serves and
+trains on every object's records. ``GDRN_CONFIGS`` maps each recipe's name to
+its function; ``tools/test_gdrn.py::load_config`` also takes
+``<dataset>SO/<obj>``.
+
 ``yolox(name)`` is the BOP'22 yolox-x detector recipe ``name``, the port's
 copy of ``configs/yolox/<name>.py`` (yolox-x at 640², TTA at scales 1, .75,
 .83, 1.12, 1.25 with conf 0.001, NMS 0.65; ``YoloxConfig``'s defaults are
@@ -20,7 +32,10 @@ with the real train split beside train_pbr.
 
 from __future__ import annotations
 
+import functools
+
 from .config import Config, YoloxConfig, replace_cfg
+from .datasets.meta import get_meta
 
 # the detector recipes' datasets, and the real train split of those with a
 # real+PBR recipe (configs/yolox/*_real_pbr.py)
@@ -91,4 +106,65 @@ def ycbv_convnext_base_rgbd() -> Config:
         "val.dataset_name": "ycbv",
         "val.use_depth_refine": True,
         "val.depth_refine_iters": 2,
+    })
+
+
+# the class counts of configs/gdrn/<ds>_convnext_base.py
+_CORE_CLASSES = {"lm": 15, "lmo": 8, "tless": 30, "tudl": 3, "icbin": 2, "itodd": 28, "hb": 33}
+
+
+def convnext_base_recipe(dataset: str) -> Config:
+    """configs/gdrn/<dataset>_convnext_base.py for a core dataset other than ycbv."""
+    return replace_cfg(Config(), {
+        "output_dir": f"output/gdrn/{dataset}/convnext_base",
+        "exp_name": f"gdrn_{dataset}_convnext_base",
+        "model.pose_net.num_classes": _CORE_CLASSES[dataset],
+        "model.pose_net.backbone.name": "convnext_base",
+        "model.bbox_type": "AMODAL_CLIP",
+        "solver.ims_per_batch": 48,
+        "solver.total_epochs": 40,
+        "solver.base_lr": 8e-4,
+        "solver.optimizer": "ranger",
+        "solver.anneal_point": 0.72,
+        "datasets.train": (f"{dataset}_train_pbr",),
+        "datasets.test": (f"{dataset}_test",),
+        "val.dataset_name": dataset,
+    })
+
+
+GDRN_CONFIGS = {
+    "ycbv_convnext_base": ycbv_convnext_base,
+    "ycbv_convnext_base_rgbd": ycbv_convnext_base_rgbd,
+    **{f"{ds}_convnext_base": functools.partial(convnext_base_recipe, ds) for ds in _CORE_CLASSES},
+}
+
+
+def so_objects(dataset: str) -> tuple:
+    """The per-object config names of a dataset (object names, '-' as '_')."""
+    meta = get_meta(dataset)
+    return tuple(meta.id2obj[i].replace("-", "_") for i in sorted(meta.id2obj))
+
+
+def so(dataset: str, obj: str) -> Config:
+    """The per-object config of ``obj`` in ``dataset``, as
+    tools/gen_so_configs.py writes configs/gdrn/<dataset>SO/<obj>.py."""
+    meta = get_meta(dataset)
+    if obj not in so_objects(dataset):
+        raise ValueError(f"{obj!r} is not an object of {meta.name}: one of "
+                         f"{', '.join(so_objects(dataset))}")
+    return replace_cfg(Config(), {
+        "output_dir": f"output/gdrn/{meta.name}SO/{obj}",
+        "exp_name": f"gdrn_{meta.name}_{obj}",
+        "model.pose_net.num_classes": 1,
+        "model.pose_net.backbone.name": "convnext_base",
+        "model.pose_net.geo_head.xyz_class_aware": False,
+        "model.pose_net.geo_head.mask_class_aware": False,
+        "model.pose_net.geo_head.region_class_aware": False,
+        "model.bbox_type": "AMODAL_CLIP",
+        "solver.ims_per_batch": 48,
+        "solver.total_epochs": 40,
+        "solver.base_lr": 8e-4,
+        "datasets.train": (f"{meta.name}_train_pbr",),
+        "datasets.test": (f"{meta.name}_test",),
+        "val.dataset_name": meta.name,
     })

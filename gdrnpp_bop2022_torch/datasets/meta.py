@@ -13,6 +13,7 @@ scale factors, the objects treated as symmetric by the custom evaluator
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
@@ -178,6 +179,27 @@ def register_meta(meta: DatasetMeta) -> DatasetMeta:
     analogue: the per-dataset register_with_name_cfg + DatasetCatalog
     machinery (core/gdrn_modeling/datasets/dataset_factory.py)."""
     return _register(meta)
+
+
+def register_meta_file(path: str) -> DatasetMeta:
+    """Register the dataset that a JSON file describes: ``name``, ``id2obj``
+    ({id: object name}), ``width``, ``height``, ``camera_matrix`` (9 values,
+    row-major) and any other field of ``DatasetMeta``. The CLIs take such
+    files as ``--dataset-meta``: a user's or a synthetic dataset in a process
+    of its own (the JAX tools exec a config file for it,
+    ``--meta-from-config``)."""
+    with open(path) as f:
+        d = json.load(f)
+    d["id2obj"] = {int(k): v for k, v in d["id2obj"].items()}
+    d["camera_matrix"] = np.asarray(d["camera_matrix"], np.float32).reshape(3, 3)
+    d.update({k: tuple(d[k]) for k in ("sym_objs", "train_pbr_scenes", "test_scenes")
+              if d.get(k) is not None})
+    return register_meta(DatasetMeta(**d))
+
+
+def register_meta_files(paths) -> None:
+    for p in paths:
+        register_meta_file(p)
 
 
 def get_meta(name: str) -> DatasetMeta:

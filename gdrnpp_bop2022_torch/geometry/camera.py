@@ -1,8 +1,11 @@
-"""Crop-camera intrinsics, batched.
+"""Camera geometry, batched: crop intrinsics, projection, backprojection.
 
-Port of ``gdrnpp_bop2022_tpu/geometry/camera.py::get_K_crop_resize`` and
-``centered_crop_K`` (the crop-K the rasterizer renders with). The skew
-term ``K[0, 1]`` scales with x like the focal length.
+Port of ``gdrnpp_bop2022_tpu/geometry/camera.py``: ``get_K_crop_resize`` and
+``centered_crop_K`` (the crop-K the rasterizer renders with; the skew term
+``K[0, 1]`` scales with x like the focal length), ``project_points``,
+``backproject_depth``, ``calc_xyz_from_depth`` and ``get_2d_coord_grid``.
+The JAX version's HIGHEST-precision einsums are written here as fp32 sums
+over j = 0, 1, 2 (``apply3``), so no product goes through TF32 on the card.
 """
 
 from __future__ import annotations
@@ -42,3 +45,52 @@ def centered_crop_K(K: torch.Tensor, centers: torch.Tensor, scales: torch.Tensor
     y1 = centers[:, 1] - scales * 0.5
     boxes = torch.stack([x1, y1, x1 + scales, y1 + scales], dim=-1)
     return get_K_crop_resize(K, boxes, (out_res, out_res))
+
+
+def apply3(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """M @ v for M (B, 3, 3) and points v (B, ..., 3), as fp32 sums."""
+    M = M.reshape(M.shape[:1] + (1,) * (v.dim() - 2) + (3, 3))
+    return (M[..., 0] * v[..., 0:1] + M[..., 1] * v[..., 1:2]
+            + M[..., 2] * v[..., 2:3])
+
+
+def project_points(pts: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
+                   t: torch.Tensor) -> torch.Tensor:
+    """Model points (B, N, 3) under pose (R (B, 3, 3), t (B, 3)) and
+    intrinsics K (B, 3, 3) -> pixels (B, N, 2)."""
+    uvw = apply3(K, apply3(R, pts) + t[:, None, :])
+    return uvw[..., :2] / uvw[..., 2:3].clamp_min(1e-12)
+
+
+def backproject_depth(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Depth (B, H, W) -> camera-space points (B, H, W, 3) (zero where the
+    depth is zero)."""
+    B, H, W = depth.shape
+    us = torch.arange(W, dtype=depth.dtype, device=depth.device)[None, None, :]
+    vs = torch.arange(H, dtype=depth.dtype, device=depth.device)[None, :, None]
+    fx, fy = K[:, 0, 0, None, None], K[:, 1, 1, None, None]
+    px, py = K[:, 0, 2, None, None], K[:, 1, 2, None, None]
+    return torch.stack([(us - px) * depth / fx, (vs - py) * depth / fy, depth], dim=-1)
+
+
+def calc_xyz_from_depth(depth: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
+                        t: torch.Tensor) -> torch.Tensor:
+    """Depth (B, H, W) -> object-space coordinates (B, H, W, 3): backproject,
+    then (R, t)^-1; zero where the depth is not above 1e-6."""
+    pts_cam = backproject_depth(depth, K) - t[:, None, None, :]
+    pts_obj = apply3(R.transpose(1, 2), pts_cam)
+    return torch.where((depth > 1e-6)[..., None], pts_obj, 0.0)
+
+
+def get_2d_coord_grid(width: int, height: int, low: float = 0.0, high: float = 1.0,
+                      fmt: str = "HWC", dtype=torch.float32, device=None) -> torch.Tensor:
+    """Normalised coordinate map over [low, high) (``endpoint=False``
+    linspace, as ``jnp.linspace`` computes it: low (1 - s) + high s with
+    s = i / n): (H, W, 2) with channels (x, y), or (2, H, W) for "CHW"."""
+    def lin(n):
+        s = torch.arange(n, dtype=dtype, device=device) / n
+        return low * (1 - s) + high * s
+    x, y = lin(width), lin(height)
+    out = torch.stack([x[None, :].expand(height, width), y[:, None].expand(height, width)],
+                      dim=-1)
+    return out.permute(2, 0, 1).contiguous() if fmt == "CHW" else out

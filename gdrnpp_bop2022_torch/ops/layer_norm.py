@@ -5,17 +5,24 @@
 ``gdrnpp_bop2022_tpu/ops/pallas_ln.py::layer_norm_pallas`` and is what
 ConvNeXt's 40 LayerNorms call.
 
-  * a tensor on the CPU goes to ``layer_norm_ref``: fp32 upcast,
-    ``F.layer_norm``, cast back; autograd differentiates it (the plain
-    backward, ``layer_norm_backward_ref``);
-  * a tensor on a CUDA device goes to the hand-written kernels of
-    ``csrc/layer_norm.cu`` (built with nvcc at first use), or the call
-    raises. There is no fallback on the card. Where a gradient is needed,
-    ``LayerNormFn`` runs the forward kernel with its per-row fp32 mean and
-    rstd saved, and its backward is the backward kernel
-    (``layer_norm_backward``). ``_vector_path`` picks each kernel's path:
+B1 is the operator ``torch.ops.gdrnpp.layer_norm(x, weight, bias, eps,
+with_stats) -> (y, mean, rstd)``, registered with ``torch.library`` when
+this module is imported, so ``torch.export`` traces it as one node and a saved program
+calls it again when it is loaded (import this module first):
+
+  * its CUDA implementation launches the hand-written kernel of
+    ``csrc/layer_norm.cu`` (built with nvcc at first use), or raises: there
+    is no fallback on the card. ``_vector_path`` picks the kernel's path:
     16-byte accesses where C and every pointer allow them, else one element
-    per access.
+    per access;
+  * its CPU implementation is the plain version, ``layer_norm_ref`` (fp32
+    upcast, ``F.layer_norm``, cast back);
+  * its fake implementation gives the shapes to tracers;
+  * its autograd formula is the backward kernel (``layer_norm_backward``)
+    on the card with the per-row fp32 mean and rstd that the forward saved
+    (``with_stats``), and ``layer_norm_backward_ref`` on the CPU. Without a
+    gradient to take, the forward writes no statistics (``mean`` and
+    ``rstd`` come back empty).
 
 ``layer_norm.launches`` counts forward kernel launches;
 ``layer_norm_backward.launches`` counts backward kernel launches and
@@ -174,35 +181,81 @@ layer_norm_backward.reduce_launches = 0
 layer_norm_backward.dy_copies = 0
 
 
-class LayerNormFn(torch.autograd.Function):
-    """B1 with a gradient on the card: the forward kernel saving its fp32
-    statistics, the backward kernel for the VJP."""
+def _stats_ref(x: torch.Tensor, eps: float):
+    """Plain per-row fp32 mean and rstd, as the kernel saves them."""
+    xf = x.float().reshape(-1, x.shape[-1])
+    mean = xf.mean(dim=1)
+    return mean, torch.rsqrt(((xf - mean[:, None]) ** 2).mean(dim=1) + eps)
 
-    @staticmethod
-    def forward(ctx, x, weight, bias, eps):
-        y, mean, rstd = _forward_cuda(x, weight, bias, eps, with_stats=True)
-        ctx.save_for_backward(x, weight, mean, rstd)
-        ctx.eps = eps
-        return y
 
-    @staticmethod
-    def backward(ctx, dy):
-        x, weight, mean, rstd = ctx.saved_tensors
-        dx, dw, db = layer_norm_backward(dy, x, weight, mean, rstd, ctx.eps)
-        return dx, dw, db, None
+# The operator is defined with torch.library.Library rather than the
+# @torch.library.custom_op decorator: the decorator runs each implementation
+# inside torch._dynamo's "disable" wrapper, whose first call imports
+# torch._dynamo (seconds, in every process that serves). The registrations
+# are the same: schema, CUDA and CPU implementations, fake, autograd.
+_LIB = torch.library.Library("gdrnpp", "DEF")
+_LIB.define("layer_norm(Tensor x, Tensor weight, Tensor bias, float eps, bool with_stats) "
+            "-> (Tensor, Tensor, Tensor)")
+
+
+def _layer_norm_cuda(x, weight, bias, eps, with_stats):
+    y, mean, rstd = _forward_cuda(x, weight, bias, eps, with_stats)
+    if not with_stats:
+        mean, rstd = (x.new_empty(0, dtype=torch.float32) for _ in range(2))
+    return y, mean, rstd
+
+
+def _layer_norm_cpu(x, weight, bias, eps, with_stats):
+    # The CPU backward does not read mean and rstd; they are computed so the
+    # op gives the outputs its schema and fake promise on every device.
+    mean, rstd =(_stats_ref(x, eps) if with_stats else
+                  (x.new_empty(0, dtype=torch.float32) for _ in range(2)))
+    return layer_norm_ref(x, weight, bias, eps), mean, rstd
+
+
+def _layer_norm_fake(x, weight, bias, eps, with_stats):
+    rows = x.numel() // x.shape[-1] if with_stats else 0
+    return (torch.empty_like(x), x.new_empty(rows, dtype=torch.float32),
+            x.new_empty(rows, dtype=torch.float32))
+
+
+_LIB.impl("layer_norm", _layer_norm_cuda, "CUDA")
+_LIB.impl("layer_norm", _layer_norm_cpu, "CPU")
+torch.library.register_fake("gdrnpp::layer_norm", _layer_norm_fake, lib=_LIB)
+
+
+def _setup_context(ctx, inputs, output):
+    x, weight, _, eps, with_stats = inputs
+    if not with_stats:
+        raise RuntimeError("gdrnpp::layer_norm was run without statistics "
+                           "(with_stats=False); its backward needs them")
+    ctx.save_for_backward(x, weight, output[1], output[2])
+    ctx.eps = eps
+
+
+def _backward(ctx, dy, _dmean, _drstd):
+    x, weight, mean, rstd = ctx.saved_tensors
+    dx, dw, db = layer_norm_backward(dy, x, weight, mean, rstd, ctx.eps)
+    return dx, dw, db, None, None
+
+
+torch.library.register_autograd("gdrnpp::layer_norm", _backward,
+                                setup_context=_setup_context, lib=_LIB)
+#: B1: (x, weight, bias, eps, with_stats) -> (y, mean, rstd); mean and rstd
+#: (rows,) fp32 when with_stats, else empty
+layer_norm_op = torch.ops.gdrnpp.layer_norm.default
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last axis of x (..., C); weight, bias (C,) fp32."""
-    if x.device.type == "cpu":
-        return layer_norm_ref(x, weight, bias, eps)
-    if x.device.type != "cuda":
+    """LayerNorm over the last axis of x (..., C); weight, bias (C,) fp32:
+    the operator ``gdrnpp::layer_norm``, with statistics where a gradient
+    will be taken."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"layer_norm runs on cpu or cuda, got {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
-                                    or bias.requires_grad):
-        return LayerNormFn.apply(x, weight, bias, eps)
-    return _forward_cuda(x, weight, bias, eps, with_stats=False)[0]
+    with_stats = torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                              or bias.requires_grad)
+    return layer_norm_op(x, weight, bias, eps, with_stats)[0]
 
 
 layer_norm.launches = 0

@@ -6,12 +6,15 @@ main_gdrn.py --eval-only), as a single process:
     python -m gdrnpp_bop2022_torch.tools.test_gdrn --config ycbv_convnext_base_rgbd \
         --weights model_final.pth [--opts val.use_pnp=True ...] [--device cpu]
 
-``--config`` is ``default`` (the flagship ``Config()``) or a name from
-``gdrnpp_bop2022_torch/configs.py``; ``--opts key=value`` overrides it.
+``--config`` is ``default`` (the flagship ``Config()``), a GDRN recipe of
+``gdrnpp_bop2022_torch/configs.py`` (``ycbv_convnext_base``,
+``lmo_convnext_base``, ...) or a per-object config ``<dataset>SO/<obj>``
+(``ycbvSO/002_master_chef_can``); ``--opts key=value`` overrides it.
 Weights come from a ``.pth`` state dict with the reference's (timm) names,
 or from ``--seed N`` (random weights drawn from a seed). Writes
-``<output_dir>/inference/<test dataset>/poses.csv`` (BOP19) and
-``scores.json`` and prints the scores.
+``<output_dir>/inference/<test dataset>/poses.csv`` (BOP19),
+``scores.json`` and ``stats.json`` (ROIs, forwards, ROI/s, and the kernel
+launches: B1's while serving, B2's while scoring) and prints the scores.
 """
 
 from __future__ import annotations
@@ -23,19 +26,25 @@ import os
 import numpy as np
 import torch
 
+from ..datasets.meta import register_meta_files
+
 PNP_TYPES = ("ransac_pnp", "uncertainty_pnp", "net_iter_pnp")
 
 
 def load_config(name: str):
+    """'default' (``Config()``), a recipe of ``configs.GDRN_CONFIGS`` or a
+    per-object config ``<dataset>SO/<obj>`` (``configs.so``)."""
     from .. import configs
     from ..config import Config
     if name == "default":
         return Config()
-    fn = getattr(configs, name, None)
-    if getattr(fn, "__module__", None) != configs.__name__ or name == "yolox":
-        raise ValueError(f"--config {name!r}: 'default' or a GDRN config of "
-                         f"gdrnpp_bop2022_torch/configs.py")
-    return fn()
+    if "SO/" in name:
+        return configs.so(*name.split("SO/", 1))
+    if name not in configs.GDRN_CONFIGS:
+        raise ValueError(f"--config {name!r}: 'default', <dataset>SO/<obj> or a GDRN "
+                         f"config of gdrnpp_bop2022_torch/configs.py "
+                         f"({', '.join(configs.GDRN_CONFIGS)})")
+    return configs.GDRN_CONFIGS[name]()
 
 
 def post_mode_of(cfg) -> str:
@@ -75,21 +84,34 @@ def run_eval(cfg, meta, bank, model, device="cuda", seed: int = 0):
         # the reference default (gdrn_base.py:10): test on the GT boxes
         dets = gt_detections(records, bbox_type=cfg.model.bbox_type)
 
+    from ..ops.layer_norm import layer_norm
+    from ..ops.raster import render_depth_xyz_cuda
+
     pc = cfg.model.pose_net
     post_mode = post_mode_of(cfg)
+    forwards = [0]
+    hook = model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    ln0 = layer_norm.launches
     batches = iter_test_batches(by_im, dets, batch_size=64,
                                 with_depth=post_mode == "depth_refine" or cfg.input.with_depth,
                                 depth_factor=meta.depth_factor)
     stats = {}
-    results = run_gdrn_inference(
-        model, batches, bank.extents, input_res=pc.input_res, output_res=pc.output_res,
-        pixel_mean=cfg.model.pixel_mean, pixel_std=cfg.model.pixel_std,
-        post_mode=post_mode, model_bank=bank,
-        depth_refine_iters=cfg.val.depth_refine_iters,
-        depth_refine_threshold=cfg.val.depth_refine_threshold,
-        mask_loss_type=pc.loss.mask_loss_type, with_depth_input=cfg.input.with_depth,
-        bp_depth=cfg.input.bp_depth, coord_2d_type=pc.pnp_net.coord_2d_type, seed=seed,
-        stats=stats)
+    try:
+        results = run_gdrn_inference(
+            model, batches, bank.extents, input_res=pc.input_res, output_res=pc.output_res,
+            pixel_mean=cfg.model.pixel_mean, pixel_std=cfg.model.pixel_std,
+            post_mode=post_mode, model_bank=bank,
+            depth_refine_iters=cfg.val.depth_refine_iters,
+            depth_refine_threshold=cfg.val.depth_refine_threshold,
+            mask_loss_type=pc.loss.mask_loss_type, with_depth_input=cfg.input.with_depth,
+            bp_depth=cfg.input.bp_depth, coord_2d_type=pc.pnp_net.coord_2d_type, seed=seed,
+            stats=stats)
+    finally:
+        hook.remove()
+    run = {"n_rois": len(results), "forwards": forwards[0],
+           "launches": {"layer_norm": layer_norm.launches - ln0}}
+    run.update({k: stats[k] for k in ("n_batches", "rois_per_sec", "p50_ms", "p99_ms")
+                if k in stats})
     if stats["n_batches"]:
         print(f"served {stats['n_instances']} ROIs in {stats['n_batches']} batches of 64 "
               f"({post_mode}, {stats['device']}): {stats['rois_per_sec']:.1f} ROI/s, p50 "
@@ -100,6 +122,8 @@ def run_eval(cfg, meta, bank, model, device="cuda", seed: int = 0):
     csv_path = os.path.join(out_dir, "poses.csv")
     save_bop_results(csv_path, results_to_bop_rows(results))
     print(f"wrote {len(results)} poses -> {csv_path}")
+    stats_path = os.path.join(out_dir, "stats.json")
+    save_json(stats_path, run)
     if cfg.val.save_results_only:
         print("val.save_results_only=True: skipping scoring")
         return results, None
@@ -128,12 +152,15 @@ def run_eval(cfg, meta, bank, model, device="cuda", seed: int = 0):
     bad = set(err_types) - {"vsd", "mssd", "mspd"}
     if bad:
         raise ValueError(f"val.error_types: unknown {sorted(bad)}")
+    r0 = render_depth_xyz_cuda.launches
     scores = score_bop_results(
         results, gt_rows, bank, targets=targets, im_width=meta.width,
         depth_test_getter=depth_getter, vsd_mode=cfg.val.vsd_mode, errors=err_types,
         eval_precision=cfg.val.eval_precision, sym_obj_labels=sym_labels,
         vsd_delta=meta.vsd_delta, n_top=cfg.val.n_top, visib_gt_min=meta.visib_gt_min,
         device=device)
+    run["launches"]["render_depth_xyz"] = render_depth_xyz_cuda.launches - r0
+    save_json(stats_path, run)
     save_json(os.path.join(out_dir, "scores.json"), scores)
     print(json.dumps(scores, indent=2))
     return results, scores
@@ -158,7 +185,11 @@ def main(argv=None):
     w.add_argument("--weights", help="a .pth state dict with the reference's names")
     w.add_argument("--seed", type=int, help="random weights drawn from this seed")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--dataset-meta", nargs="+", default=[],
+                    help="JSON files of datasets to register first (datasets/meta.py::"
+                         "register_meta_file)")
     args = ap.parse_args(argv)
+    register_meta_files(args.dataset_meta)
 
     from ..bop.models3d import ModelBank
     from ..config import parse_opts, replace_cfg

@@ -35,6 +35,9 @@ import time
 import numpy as np
 import torch
 
+from ..datasets.meta import register_meta_files
+
+
 def resolve_eval_cfg(args, error=None):
     """The recipe (or the flag defaults) with the flags over it. Returns
     (cfg, conf_thr), conf_thr being the recipe's TTA threshold under TTA,
@@ -188,7 +191,11 @@ def main(argv=None):
                     help="a train_yolox checkpoint directory (ckpt_yolox): serve the newest "
                          "checkpoint's EMA weights")
     add_model_args(ap)
+    ap.add_argument("--dataset-meta", nargs="+", default=[],
+                    help="JSON files of datasets to register first (datasets/meta.py::"
+                         "register_meta_file)")
     args = ap.parse_args(argv)
+    register_meta_files(args.dataset_meta)
 
     from ..bop.inout import save_json
     from ..datasets.bop_data import index_bop_split, load_image

@@ -28,6 +28,8 @@ import os
 
 import torch
 
+from ..datasets.meta import register_meta_files
+
 
 def records_for(cfg, meta, names):
     from ..datasets.bop_data import index_bop_split
@@ -93,7 +95,11 @@ def main(argv=None):
     ap.add_argument("--eval-only", action="store_true")
     ap.add_argument("--max-iters", type=int, default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--dataset-meta", nargs="+", default=[],
+                    help="JSON files of datasets to register first (datasets/meta.py::"
+                         "register_meta_file)")
     args = ap.parse_args(argv)
+    register_meta_files(args.dataset_meta)
 
     from ..bop.models3d import ModelBank
     from ..config import parse_opts, replace_cfg

@@ -12,6 +12,10 @@ the source and all its flags, and loaded with ``ctypes``. A file with a
 plain C interface builds in seconds; nothing here includes PyTorch's
 headers. ``build_kernel_libraries`` starts one nvcc per missing source, all
 at once. A build that fails raises: there is no fallback.
+
+``load_host_library`` builds a host C++ source with a plain C interface
+(``native/rle.cpp``, the RLE codec) the same way with ``g++`` (or $CXX)
+into the same directory, keyed by a hash of the source and its flags.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     # version does, or pixels on a seam flip between versions
     "raster": ("-fmad=false", "-prec-div=true", "-ftz=false"),
 }
+
+GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -118,4 +124,33 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
     build_kernel_libraries([name])
     lib = ctypes.CDLL(str(library_path(name)))
     _loaded[name] = lib
+    return lib
+
+
+def host_library_path(source: Path) -> Path:
+    """Where the g++ build of a host C++ source goes: keyed by source and flags."""
+    source = Path(source)
+    key = hashlib.sha256(source.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{source.stem}-host-{key}.so"
+
+
+def load_host_library(source: Path) -> ctypes.CDLL:
+    """Compile a host C++ source with g++ (once per source hash) and load
+    it; raise if the compiler fails."""
+    out = host_library_path(source)
+    if str(out) in _loaded:
+        return _loaded[str(out)]
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run([os.environ.get("CXX", "g++"), *GXX_FLAGS, "-o", tmp, str(source)],
+                           check=True, capture_output=True, text=True, timeout=120)
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    lib = ctypes.CDLL(str(out))
+    _loaded[str(out)] = lib
     return lib

@@ -3,7 +3,8 @@
 The port's copy of ``gdrnpp_bop2022_tpu/utils/vis.py``'s ``grid_show``
 (reference lib/vis_utils grid_show; written to a file, not a window),
 ``bbox3d_corners``, ``project_pts`` and ``draw_pose_bbox`` (the GDRN demo's
-projected 3D boxes), and ``draw_detections``, the detector demo's 2D boxes
+projected 3D boxes), ``overlay_mask`` (``tools/vis_dataset.py``'s mask
+panels), and ``draw_detections``, the detector demo's 2D boxes
 (``tools/demo_yolox.py``'s drawing).
 """
 
@@ -58,6 +59,15 @@ def draw_detections(img: np.ndarray, boxes, names, scores,
         cv2.putText(out, f"{name} {float(sc):.2f}", (x1, y1 - 4),
                     cv2.FONT_HERSHEY_SIMPLEX, 0.5, color, 1)
     return out
+
+
+def overlay_mask(img: np.ndarray, mask: np.ndarray,
+                 color=(255, 0, 0), alpha=0.4) -> np.ndarray:
+    """img with ``color`` blended in at ``alpha`` where mask is set."""
+    out = img.astype(np.float32).copy()
+    m = mask.astype(bool)
+    out[m] = out[m] * (1 - alpha) + np.asarray(color, np.float32) * alpha
+    return out.astype(np.uint8)
 
 
 def grid_show(images, titles=None, out_path=None, cols=4):

@@ -5,7 +5,11 @@
 config, overrides and ``parse_opts`` agree field by field, and the port's
 ``ycbv_convnext_base_rgbd()`` and ``ycbv_convnext_base()`` equal the ``cfg``
 of configs/gdrn/ycbv_convnext_base_rgbd.py and configs/gdrn/ycbv_convnext_base.py,
-and each detector recipe ``yolox(name)`` the ``cfg`` of configs/yolox/<name>.py.
+each other dataset's ``<ds>_convnext_base()`` the ``cfg`` of
+configs/gdrn/<ds>_convnext_base.py, each per-object ``so("ycbv", obj)`` the
+``cfg`` of configs/gdrn/ycbvSO/<obj>.py (what tools/gen_so_configs.py wrote;
+``tools/test_gdrn.py::load_config`` resolves ``ycbvSO/<obj>`` to it), and
+each detector recipe ``yolox(name)`` the ``cfg`` of configs/yolox/<name>.py.
 """
 
 import dataclasses
@@ -17,8 +21,10 @@ import pytest
 
 from gdrnpp_bop2022_tpu import config as jcfg
 from gdrnpp_bop2022_torch import config as tcfg
+from gdrnpp_bop2022_torch import configs
 from gdrnpp_bop2022_torch.configs import (YOLOX_RECIPES, ycbv_convnext_base,
                                           ycbv_convnext_base_rgbd, yolox)
+from gdrnpp_bop2022_torch.tools.test_gdrn import load_config
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -58,10 +64,46 @@ def test_overrides_and_opts_equal_jax():
 
 def _config_file(name):
     path = os.path.join(_ROOT, "configs", "gdrn", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(f"_{name}_cfg_file", path)
+    spec = importlib.util.spec_from_file_location(f"_{name.replace('/', '_')}_cfg_file", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.cfg
+
+
+_CORE = ("lm", "lmo", "tless", "tudl", "icbin", "itodd", "hb")
+
+
+def test_gdrn_recipes_are_the_config_files():
+    files = {os.path.basename(f)[:-3]
+             for f in glob.glob(os.path.join(_ROOT, "configs", "gdrn", "*_convnext_base*.py"))}
+    assert files == set(configs.GDRN_CONFIGS)
+
+
+@pytest.mark.parametrize("ds", _CORE)
+def test_dataset_recipe_equals_the_config_file(ds):
+    name = f"{ds}_convnext_base"
+    got, want = _fields(load_config(name)), _fields(_config_file(name))
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k] == want[k], k
+
+
+def test_so_configs_are_the_generated_files():
+    files = sorted(os.path.basename(f)[:-3]
+                   for f in glob.glob(os.path.join(_ROOT, "configs", "gdrn", "ycbvSO", "*.py")))
+    assert files == sorted(configs.so_objects("ycbv")) and len(files) == 21
+    with pytest.raises(ValueError, match="not an object of ycbv"):
+        configs.so("ycbv", "no_such_object")
+
+
+@pytest.mark.parametrize("obj", sorted(
+    os.path.basename(f)[:-3] for f in glob.glob(os.path.join(_ROOT, "configs", "gdrn", "ycbvSO",
+                                                              "*.py"))))
+def test_so_config_equals_the_generated_file(obj):
+    got, want = _fields(load_config(f"ycbvSO/{obj}")), _fields(_config_file(f"ycbvSO/{obj}"))
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k] == want[k], k
 
 
 def test_rgbd_config_equals_the_config_file():

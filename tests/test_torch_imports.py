@@ -51,5 +51,9 @@ def test_port_imports_no_jax():
               "models.yolox.pafpn", "models.yolox.head", "models.yolox.yolox",
               "datasets.yolox_loader", "eval.detection_eval", "tools.test_yolox",
               "tools.demo_yolox", "tools.demo_gdrn", "engine.yolox_trainer",
-              "tools.train_yolox"):
+              "tools.train_yolox", "ops.fps", "ops.chamfer", "ops.flow", "ops.edges",
+              "ops.ransac_voting", "utils.mask_rle", "utils.fake_data", "tools.export_model",
+              "tools.strip_ckpt", "tools.convert_dets", "tools.merge_so_results",
+              "tools.process_results_time", "tools.run_bop_sweep", "tools.compute_mask_miou",
+              "tools.vis_dataset"):
         assert f"gdrnpp_bop2022_torch.{m}" in out["modules"], m

@@ -220,7 +220,7 @@ def _check_bwd(x, dy, w, b):
     br = b.detach().clone().requires_grad_(True)
     before = (layer_norm.launches, layer_norm_backward.launches,
               layer_norm_backward.reduce_launches)
-    y = layer_norm(xr, wr, br)                              # LayerNormFn
+    y = layer_norm(xr, wr, br)                  # gdrnpp::layer_norm with statistics
     y.backward(dy)
     torch.cuda.synchronize()
     assert (layer_norm.launches, layer_norm_backward.launches,
