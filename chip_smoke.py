@@ -157,7 +157,21 @@ the same models on the CPU in fp32. It prints its wall time. Phases:
      time and profile beside the eager forward's; each auxiliary op (fps,
      chamfer, flow, canny, RANSAC voting) on the card against the CPU on the
      same inputs, fp32, TF32 off, timed by CUDA events; the RLE codec through
-     its native library against its numpy path.
+     its native library against its numpy path;
+ 18. the last modules: the flagship with ``backbone.int8_mlp=True`` on phase
+     4's batch (run after phase 7, while that model is up): one block's
+     ``torch._int_mm`` accumulators equal to the CPU's int32 matmul of the
+     same codes and to their exact product, the poses' difference from the
+     bf16 forward, forward times int8 against bf16 in turns, B1 at 40 a
+     forward; ``backbone.remat`` on the RGB recipe at batch 48 for a few
+     steps on the same batches, with and without: losses, B1 forward
+     launches (76 against 40 a step), peak memory, step times; ``demo_gdrn
+     --dets --depth-images --depth-refine --cam-K`` on the RGB-D scene
+     against ``run_gdrn_inference(post_mode="depth_refine")`` and B2's
+     launches; ``train_gdrn`` at world 1 and at world 2 (two processes over
+     gloo on this one card) for a few steps of the RGB recipe, the step-1
+     loss and the parameter updates held to world 1's; ``test_gdrn
+     --num-processes 2`` on the card against one process.
 
 The scene's sensor depth is analytic (ray-ellipsoid), never rendered by the
 kernel under test. Any failure raises (exit code 1). Without a CUDA device
@@ -407,6 +421,34 @@ RLE_MASKS = 8
 YX_LEARN_IMAGES = 6
 YX_LEARN_STEPS = 200
 YX_LEARN_AP50 = 0.5
+# phase 18: int8 serving on phase 4's batch (one block's accumulators checked:
+# stage 2 block 13, a middle block of the deepest stage; the CPU's int32
+# matmul on its first INT8_CPU_ROWS rows), remat for REMAT_STEPS steps of the
+# RGB recipe on the same batches (step 1's loss bit-equal, later ones within
+# REMAT_LOSS_TOL relative: the recompute is exact, cuDNN's backward need not
+# be deterministic; B1 76 forward launches a step: 36 blocks twice + the stem
+# and 3 downsamples), the demo's depth refine vs run_gdrn_inference (the same
+# device work on the same inputs: within DEMO_REFINE_T_TOL), DDP_STEPS steps at
+# world 1 and world DDP_WORLD: the step-1 loss within DDP_LOSS_TOL relative
+# (bf16 forwards of 48 vs 2 x 24 ROIs; the card read 4.7e-7), the parameter
+# updates within DDP_UPDATE_TOL of their L2 norm (read 4.5e-3: Ranger's first
+# steps move each weight by about lr x sign(g), and a weight whose bf16
+# gradient is near 0 may flip), and test_gdrn over two processes vs one within
+# DDP_EVAL_R_TOL on R and DDP_EVAL_T_TOL_MM on t (bf16 forwards of other batch
+# compositions; read 0).
+INT8_BLOCK = (2, 13)
+INT8_CPU_ROWS = 256
+REMAT_STEPS = 3
+REMAT_LR = 1e-4
+REMAT_LOSS_TOL = 1e-3
+REMAT_LN_FWD = 76
+DEMO_REFINE_T_TOL = 1e-5
+DDP_STEPS = 3
+DDP_WORLD = 2
+DDP_LOSS_TOL = 1e-4
+DDP_UPDATE_TOL = 0.05
+DDP_EVAL_R_TOL = 1e-3
+DDP_EVAL_T_TOL_MM = 1.0
 
 
 def check(cond, msg):
@@ -523,7 +565,7 @@ def profile_calls(fn, n):
 
 def phase_device():
     name = torch.cuda.get_device_name(0)
-    log(f"[1/17] device: {name} x{torch.cuda.device_count()}  torch "
+    log(f"[1/18] device: {name} x{torch.cuda.device_count()}  torch "
         f"{torch.__version__}  CUDA {torch.version.cuda}  python "
         f"{sys.version.split()[0]}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -537,7 +579,7 @@ def phase_device():
     build_kernel_libraries(["layer_norm", "raster"])    # nvcc, both at once
     for lib in ("layer_norm", "raster"):
         load_kernel_library(lib)
-    log(f"[1/17] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
+    log(f"[1/18] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s")
     return name, card
 
@@ -594,11 +636,11 @@ def ln_times(card):
         for key, v in zip(t, (k, kc, p, lib, libc, cp)):
             t[key] += n * v
         n_bytes += n * (2 * x.numel() * x.element_size() + 2 * C * 4)
-        log(f"[2/17] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
+        log(f"[2/18] B1 rows={BATCH * r} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms cold "
             f"{kc:.4f} ms, plain {p:.4f} ms, F.layer_norm hot {lib:.4f} ms cold {libc:.4f} ms,"
             f" copy_ cold {cp:.4f} ms")
     t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[2/17] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
+    log(f"[2/18] B1 per forward at batch {BATCH} (40 LayerNorms, bf16): kernel hot "
         f"{t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms ({100 * t['bound_ms'] / t['cold_ms']:.1f}% "
         f"of the bound cold); plain {t['plain_ms']:.4f} ms; F.layer_norm hot "
         f"{t['library_ms']:.4f} ms, cold {t['library_cold_ms']:.4f} ms; copy_ of the same "
@@ -626,7 +668,7 @@ def phase_kernels(card):
         want = off == 0 and C * x.element_size() % 16 == 0
         check(vec == want, f"B1 path for C={C} {dt} offset {off}: vector={vec}")
         worst = max(worst, err)
-        log(f"[2/17] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
+        log(f"[2/18] B1 rows={rows} C={C} {str(dt)[6:]} offset={off} "
             f"{'vector' if vec else 'scalar'} path: max_abs_err={err:.3g}")
         check(ok, f"B1 disagrees with its plain version at rows={rows} C={C} "
                   f"{dt} offset {off}: max abs err {err}")
@@ -876,7 +918,7 @@ def seam_scene(n=8, device="cuda"):
             dev(np.zeros((n, 3), np.float32)), dev(K), 64, 64)
 
 
-def _raster_case(label, verts, faces, R, t, K, H, W, tag="[3/17]"):
+def _raster_case(label, verts, faces, R, t, K, H, W, tag="[3/18]"):
     """The pack kernel vs the torch packing and the cull rule, and the
     kernel (both modes) vs plain (both modes), at one shape; returns the
     worst depth / xyz errors."""
@@ -1003,7 +1045,7 @@ def phase_raster(card, scene, bank):
     # faces per tile after culling, and the bound, at the flagship
     bd = raster_bound(*flag)
     pt = bd["per_tile"].float()
-    log(f"[3/17] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
+    log(f"[3/18] B2 flagship culling: faces per {RASTER_TILE[0]}x{RASTER_TILE[1]} tile mean "
         f"{float(pt.mean()):.1f}, max {int(pt.max())} of {F}; {bd['pairs']:.4e} pixel-face "
         f"pairs inside the boxes vs {bd['all_pairs']:.4e} all pairs")
     # times at the flagship, depth only (the mode depth refinement runs)
@@ -1026,14 +1068,14 @@ def phase_raster(card, scene, bank):
                                                   max_block=PLAIN_MAX_BLOCK), iters=3,
                    warmup=1)
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"          # noqa: E731
-    log(f"[3/17] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
+    log(f"[3/18] B2 flagship depth only: wrapper hot {t['ms']:.4f} ms, cold "
         f"{t['cold_ms']:.4f} ms (2 launches; the raster kernel alone {kernel_only_ms:.4f} ms "
         f"by events, {fmt(t['kernel_ms'])} by the profiler, the pack kernel "
         f"{fmt(t['pack_kernel_ms'])}); attribute mode {k_attr_ms:.4f} ms; plain "
         f"{p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms ({bd['pairs']:.4e} tests x "
         f"{RASTER_OPS_PER_TEST} fp32 ops at 67 TFLOP/s, {bd['bound_by']}), all-pairs bound "
         f"{bd['all_pairs_bound_ms']:.4f} ms  [{card}]")
-    log(f"[3/17] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
+    log(f"[3/18] B2 full image depth only (2 ROIs at 480x640, {F} faces): pack + raster "
         f"kernels {full_ms:.4f} ms of device time per call  [{card}]")
     vsd = [_vsd_shape(card, vsd_shape_input(scene, bank, np.random.RandomState(SEED + 20 + i),
                                             n, bh, bw), n)
@@ -1127,7 +1169,7 @@ def _vsd_shape(card, inp, n):
     bd = raster_bound(*inp)
     pt = bd["per_tile"].float()
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
-    log(f"[3/17] B2 {label} ({faces.shape[1]} faces): == plain version bit for bit "
+    log(f"[3/18] B2 {label} ({faces.shape[1]} faces): == plain version bit for bit "
         f"({int(hit.sum())} px hit); hot {hot:.4f} ms, cold {cold:.4f} ms per call (the "
         f"raster kernel {fmt(k['raster_kernel'])}, pack {fmt(k['pack_faces_kernel'])}; the "
         f"raster kernel on empty boxes, i.e. its box tests alone, {fmt(box_ms)}); faces per "
@@ -1236,11 +1278,11 @@ def phase_slice(card, tmp):
     check(launches == LN_PER_FORWARD * forwards[0],
           f"layer_norm launches {launches} != 40 x {forwards[0]} forwards")
     orth = _check_rows(results, n_rois, tmp, "rgb")
-    log(f"[4/17] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
+    log(f"[4/18] RGB: served {n_rois} ROIs ({N_IMAGES} images) in {stats['n_batches']} "
         f"batches of {BATCH} + warm-up: {forwards[0]} forwards, layer_norm "
         f"launches {launches} = 40 x {forwards[0]}; rows finite, "
         f"max|R^T R - I| = {orth:.2e}; CSV {len(results)} rows")
-    log(f"[4/17] RGB serving (ROI crop + forward + decode, host clock after "
+    log(f"[4/18] RGB serving (ROI crop + forward + decode, host clock after "
         f"synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -1255,7 +1297,7 @@ def phase_slice(card, tmp):
                               dev(b0["labels"]), dev(extents).float(),
                               input_res=pc.input_res, output_res=pc.output_res)
         fwd_ms = cuda_ms(lambda: model(**rb), iters=10)
-    log(f"[4/17] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[4/18] GDRN forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s  [{card}]")
     serve = {"model": model, "forwards": forwards, "extents": extents, "kw": kw,
              "batches": lambda: iter_test_batches(by_im, dets, batch_size=BATCH),
@@ -1320,13 +1362,13 @@ def phase_rgbd_slice(card, scene, bank, tmp):
     check(p_launches == r_launches, f"RGB-D: pack launches {p_launches} != raster "
           f"launches {r_launches}")
     orth = _check_rows(results, n_rois, tmp, "rgbd")
-    log(f"[5/17] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
+    log(f"[5/18] RGB-D: served {n_rois} ROIs ({N_IMAGES} images, depth PNGs, bank of "
         f"{bank.faces.shape[0]} meshes x {bank.faces.shape[1]} faces) in {nb} batches of "
         f"{BATCH} + warm-up, post_mode=depth_refine x{iters}: {forwards[0]} forwards, "
         f"layer_norm launches {ln_launches} = 80 x {forwards[0]}, raster launches "
         f"{r_launches} = {iters} x {nb + 1} (and as many pack launches); rows finite, max|R^T R - I| = {orth:.2e}; "
         f"CSV {len(results)} rows")
-    log(f"[5/17] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
+    log(f"[5/18] RGB-D serving (ROI + depth crops + forward + depth refine, host clock "
         f"after synchronize): {stats['rois_per_sec']:.1f} ROI/s, p50 "
         f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch of "
         f"{BATCH}  [{card}]")
@@ -1355,7 +1397,7 @@ def phase_rgbd_slice(card, scene, bank, tmp):
                     scales, bv, bf, rb["roi_extents"])
         refine_ms = cuda_ms(lambda: depth_refine_batch(*ref_args, iters=iters,
                                                        out_res=pc.output_res), iters=10)
-    log(f"[5/17] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
+    log(f"[5/18] RGB-D forward alone at batch {BATCH}, bf16: {fwd_ms:.3f} ms = "
         f"{BATCH / fwd_ms * 1e3:.1f} ROI/s; depth refine x{iters}: {refine_ms:.3f} ms "
         f"per batch  [{card}]")
     rows2 = {k: v[:2] for k, v in rb.items()}
@@ -1383,7 +1425,7 @@ def phase_refine(card, scene, bank):
           f"depth refine left a z error of {worst_z} m from a {REFINE_OFFSET_M} m offset")
     dt = float((t_k - t_p).abs().max())
     check(dt <= REFINE_T_TOL, f"refined t, B2 vs plain rasterizer: {dt} m")
-    log(f"[6/17] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
+    log(f"[6/18] depth refine at batch {BATCH} from GT t + {REFINE_OFFSET_M * 100:.0f} cm "
         f"in z, 2 iterations: z error max {worst_z * 1e3:.3f} mm, mean "
         f"{float(z_err.mean()) * 1e3:.3f} mm (limit {0.3 * REFINE_OFFSET_M * 1e3:.1f} mm); "
         f"B2 vs plain rasterizer max |dt| = {dt:.3g} m  [{card}]")
@@ -1438,7 +1480,7 @@ def phase_pnp(card, scene, bank, serve, tmp):
         check(r_err.max() < PNP_R_TOL_DEG and t_err.max() < PNP_T_TOL_M,
               f"{name} from perfect dense outputs: R error {r_err.max()} deg, t error "
               f"{t_err.max()} m")
-        log(f"[7/17] {name} recovers {n} known poses from B2-rendered XYZ / mask / 2D coords "
+        log(f"[7/18] {name} recovers {n} known poses from B2-rendered XYZ / mask / 2D coords "
             f"at {res}x{res}: R error max {r_err.max():.4f} deg, t error max "
             f"{t_err.max() * 1e3:.3f} mm (limits {PNP_R_TOL_DEG} deg, "
             f"{PNP_T_TOL_M * 1e3:.0f} mm); {ms:.3f} ms per batch of {n}  [{card}]")
@@ -1475,7 +1517,7 @@ def phase_pnp(card, scene, bank, serve, tmp):
             post_ms = cuda_ms(post[mode], iters=5, warmup=1)
         times[mode] = {"post_ms": post_ms, "p50_ms": stats["p50_ms"],
                        "rois_per_sec": stats["rois_per_sec"], "launches": launches}
-        log(f"[7/17] RGB post_mode={mode}: served {n_rois} ROIs in {nb} batches of {BATCH} + "
+        log(f"[7/18] RGB post_mode={mode}: served {n_rois} ROIs in {nb} batches of {BATCH} + "
             f"warm-up, layer_norm launches {launches} = 40 x {forwards[0]}; rows finite, "
             f"max|R^T R - I| = {orth:.2e}; {stats['rois_per_sec']:.1f} ROI/s, p50 "
             f"{stats['p50_ms']:.2f} ms p99 {stats['p99_ms']:.2f} ms per batch; the PnP step "
@@ -1554,7 +1596,7 @@ def phase_score(card, scene, bank, tmp):
     check(all(s_gt[k] == 1.0 for k in ar_keys),
           f"GT poses as estimates: {({k: s_gt[k] for k in ar_keys})}")
     sec = ", ".join(f"{k} {v:.3f} s" for k, v in stats["seconds"].items())
-    log(f"[8/17] scoring GT poses as estimates ({len(gts)} GT, {n_vis} at visib >= 0.1, "
+    log(f"[8/18] scoring GT poses as estimates ({len(gts)} GT, {n_vis} at visib >= 0.1, "
         f"{stats['n_targets']} targets, {stats['n_pairs']} pairs) on the card, "
         f"vsd_mode=full: AR = AR_vsd = AR_mssd = AR_mspd = 1.0; VSD pairs per render "
         f"{stats['vsd_pairs']}; {launches} B2 calls; {sec}; "
@@ -1582,7 +1624,7 @@ def phase_score(card, scene, bank, tmp):
               f"ladder {name}: card vs CPU gap {gap} on image {cpu_im}")
         ladder.append({"rung": name, **{k: s_b2[k] for k in ar_keys},
                        "seconds": st["seconds"]["total"]})
-        log(f"[8/17] ladder {name}: " + " ".join(f"{k}={s_b2[k]:.4f}" for k in ar_keys)
+        log(f"[8/18] ladder {name}: " + " ".join(f"{k}={s_b2[k]:.4f}" for k in ar_keys)
             + f" (B2 == plain rasterizer on the card, every key; image {cpu_im}'s "
             f"{len(sub)} GT on the card vs the CPU: max gap {gap:.2e}); "
             f"{st['seconds']['total']:.3f} s, {st['targets_per_s']:.1f} targets/s; with the "
@@ -1621,7 +1663,7 @@ def phase_score(card, scene, bank, tmp):
             n_fit += len(m)
             n_eq += int((diff == 0).sum())
             worst = max(worst, float((diff / share).max()))
-    log(f"[8/17] bbox VSD vs full-image VSD on the card, {n_fit} pairs whose plan fits a "
+    log(f"[8/18] bbox VSD vs full-image VSD on the card, {n_fit} pairs whose plan fits a "
         f"bucket (of {len(gts)}; ladder rung {LADDER[-1][0]}): {n_eq} equal, the rest within "
         f"one pixel's share of their union (worst {worst:.2f} of it): the window's principal "
         f"point, shifted by the integer origin, rounds u by <= 1 ulp  [{card}]")
@@ -1637,7 +1679,7 @@ def phase_score(card, scene, bank, tmp):
     check(all(k in cli and np.isfinite(cli[k]) and 0.0 <= cli[k] <= 1.0 for k in ar_keys)
           and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in cli.values()),
           f"score_csv CLI scores {cli}")
-    log(f"[8/17] python -m gdrnpp_bop2022_torch.tools.score_csv on the served RGB-D CSV: "
+    log(f"[8/18] python -m gdrnpp_bop2022_torch.tools.score_csv on the served RGB-D CSV: "
         + " ".join(f"{k}={cli[k]:.4f}" for k in ar_keys)
         + f", {len(cli)} keys all finite in [0, 1]; {time.perf_counter() - t0:.1f} s "
         f"with the process start  [{card}]")
@@ -1716,13 +1758,13 @@ def ln_backward_times(card):
             t[key] += n * v
         n_bytes += n * (3 * x.numel() * 2 + 2 * rows * 4 + 3 * C * 4)
         fwd_bytes += n * (2 * x.numel() * 2 + 2 * rows * 4 + 2 * C * 4)
-        log(f"[10/17] B1 backward rows={rows} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms "
+        log(f"[10/18] B1 backward rows={rows} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms "
             f"cold {kc:.4f} ms, plain {p:.4f} ms, native_layer_norm_backward hot {lib:.4f} "
             f"ms, copy_ of the same bytes cold {cp:.4f} ms; forward with statistics cold "
             f"{fs:.4f} ms")
     t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
     t["fwd_stats_bound_ms"] = fwd_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[10/17] B1 backward per training step at batch {TRAIN_BATCH} (40 LayerNorms, "
+    log(f"[10/18] B1 backward per training step at batch {TRAIN_BATCH} (40 LayerNorms, "
         f"bf16): kernel hot {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms "
         f"({100 * t['bound_ms'] / t['cold_ms']:.1f}% of the bound cold); plain "
         f"{t['plain_ms']:.4f} ms; native_layer_norm_backward hot {t['library_ms']:.4f} ms; "
@@ -1747,7 +1789,7 @@ def phase_ln_backward(card):
         x = torch.empty(rows * C + off, dtype=dt, device="cuda")[off:].view(rows, C)
         vec = _vector_path(x, x, torch.empty(C, device="cuda"))
         worst = max(worst, err)
-        log(f"[10/17] B1 backward rows={rows} C={C} {str(dt)[6:]} offset={off} "
+        log(f"[10/18] B1 backward rows={rows} C={C} {str(dt)[6:]} offset={off} "
             f"{'vector' if vec else 'scalar'} path: dx max_abs_err={err:.3g}, dweight/dbias "
             f"max err / sum|terms| = {rel:.3g}")
         check(ok, f"B1 backward disagrees with its plain version at rows={rows} C={C} {dt} "
@@ -1873,7 +1915,7 @@ def _aug_check(card, cfg, records, meta, bg_paths):
     check(bg_exact and err <= AUG_TOL and 0 < float(gate.sum()) < TRAIN_BATCH,
           f"augmentation card vs CPU: background exact {bg_exact}, colour max err {err}")
     ms = cuda_ms(lambda: augment(), iters=5, warmup=1)
-    log(f"[10/17] background replacement (p {inp.change_bg_prob}, {len(bg_paths)} images) and "
+    log(f"[10/18] background replacement (p {inp.change_bg_prob}, {len(bg_paths)} images) and "
         f"{aug_type} colour augmentation (p {inp.color_aug.prob}) of a training batch "
         f"({TRAIN_BATCH} x 480x640) on the card vs their plain versions on the CPU, same "
         f"draws, first {n} images: background bit for bit ({int(gate.sum())} of "
@@ -1901,7 +1943,7 @@ def _train_b2(card, records, bank, meta):
            dev("gt_rots"), dev("gt_transes"),
            centered_crop_K(dev("Ks"), dev("centers"), dev("scales"), 64), 64, 64)
     F = inp[1].shape[1]
-    err = _raster_case(f"training batch B={TRAIN_BATCH} 64x64 F={F}", *inp, tag="[10/17]")
+    err = _raster_case(f"training batch B={TRAIN_BATCH} 64x64 F={F}", *inp, tag="[10/18]")
     call = lambda: render_depth_xyz_cuda(*inp)                      # noqa: E731
     bd = raster_bound(*inp)
     # hot by the profiler: events around back-to-back calls of ~40 us time
@@ -1910,7 +1952,7 @@ def _train_b2(card, records, bank, meta):
          "plain_ms": cuda_ms(lambda: render_depth_xyz_batch(*inp, max_block=PLAIN_MAX_BLOCK),
                              iters=3, warmup=1),
          "bound_ms": bd["bound_ms"], "max_abs_err": err, "faces": F}
-    log(f"[10/17] B2 attribute mode at the training batch ({TRAIN_BATCH} ROIs x 64^2 x {F} "
+    log(f"[10/18] B2 attribute mode at the training batch ({TRAIN_BATCH} ROIs x 64^2 x {F} "
         f"faces, decimated): hot {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({bd['pairs']:.4e} pixel-face "
         f"pairs in the boxes, {bd['bound_by']}); faces per tile mean "
@@ -1918,7 +1960,7 @@ def _train_b2(card, records, bank, meta):
     return t
 
 
-def _train_parity(card, records, bank, meta, over=None, tag="[10/17]"):
+def _train_parity(card, records, bank, meta, over=None, tag="[10/18]"):
     """One fp32 step of the tiny config (with ``over``: the dual stream) on
     the card and on the CPU from the same weights and batch (built once on
     the CPU): losses, grads and the params after the step."""
@@ -1995,7 +2037,7 @@ def _train_parity(card, records, bank, meta, over=None, tag="[10/17]"):
         f"{par_err:.2e} (limit {par_tol})")
 
 
-def _train_profile(card, cfg, state, records, bank, meta, bg_paths, tag="[10/17]"):
+def _train_profile(card, cfg, state, records, bank, meta, bg_paths, tag="[10/18]"):
     """Where a training step's device time goes: torch.profiler over
     TRAIN_PROFILE_STEPS steps (host prep of one loader batch included, with
     its augmentations, the loader's wait not): kernel time by name, and the
@@ -2226,7 +2268,7 @@ def phase_train(card, scene, tmp):
     records = records_for(cfg, meta, cfg.datasets.train)
     check(bank.faces.shape[1] <= pc.gt_max_faces and len(records) >= TRAIN_BATCH,
           f"bank faces {bank.faces.shape}, {len(records)} records")
-    log(f"[10/17] train split: {TRAIN_IMAGES} 480x640 images x {DETS_PER_IMAGE} ellipsoids, "
+    log(f"[10/18] train split: {TRAIN_IMAGES} 480x640 images x {DETS_PER_IMAGE} ellipsoids, "
         f"analytic depth, mask/ and mask_visib/ PNGs from the analytic hits, {len(records)} "
         f"records at visib >= {cfg.datasets.filter_visib_thr}; {len(bg_paths)} 640x480 "
         f"backgrounds; bank decimated from 4096 to {bank.faces.shape[1]} faces "
@@ -2236,7 +2278,7 @@ def phase_train(card, scene, tmp):
     aug = _aug_check(card, cfg, records, meta, bg_paths)
     ctx = {"meta": meta, "records": records, "bank": bank, "bg_paths": bg_paths,
            "common": common, "tmp": tmp}
-    run = _train_recipe(card, cfg, ctx, TRAIN_STEPS, TRAIN_LOSS_DROP, "[10/17]",
+    run = _train_recipe(card, cfg, ctx, TRAIN_STEPS, TRAIN_LOSS_DROP, "[10/18]",
                         LN_PER_FORWARD)
     with no_tf32():
         _train_parity(card, records, bank, meta)
@@ -2266,14 +2308,14 @@ def phase_train_rgbd(card, ctx):
         err, rel, ok = _ln_bwd_case(TRAIN_BATCH * r, C, torch.bfloat16, g)
         check(ok, f"B1 backward at ({TRAIN_BATCH * r}, {C}) bf16: dx err {err}, rel {rel}")
         worst = max(worst, err)
-    log(f"[11/17] B1 backward vs plain at the dual stream's shapes (both backbones: "
+    log(f"[11/18] B1 backward vs plain at the dual stream's shapes (both backbones: "
         f"{', '.join(f'({TRAIN_BATCH * r}, {C})' for r, C, _ in LN_SHAPES)}, bf16): dx max "
         f"abs err {worst:.3e}, within one bf16 ulp + 1e-5; dweight / dbias within "
         f"{LN_BWD_REL_TOL} of the sum of their terms")
-    run = _train_recipe(card, cfg, ctx, TRAIN_RGBD_STEPS, TRAIN_RGBD_LOSS_DROP, "[11/17]",
+    run = _train_recipe(card, cfg, ctx, TRAIN_RGBD_STEPS, TRAIN_RGBD_LOSS_DROP, "[11/18]",
                         2 * LN_PER_FORWARD)
     with no_tf32():
-        _train_parity(card, ctx["records"], ctx["bank"], ctx["meta"], over=DSTREAM, tag="[11/17]")
+        _train_parity(card, ctx["records"], ctx["bank"], ctx["meta"], over=DSTREAM, tag="[11/18]")
     return dict(run, ln_bwd_err=worst)
 
 
@@ -2310,7 +2352,7 @@ def phase_pool(card, ctx):
     finally:
         host.close()
         pooled.close()
-    log(f"[10/17] pool mode: {POOL_BATCHES} training batches from frames kept on the card "
+    log(f"[10/18] pool mode: {POOL_BATCHES} training batches from frames kept on the card "
         f"({pools.nbytes / 1e9:.2f} GB: {POOL_FRAMES} RGB, {2 * POOL_FRAMES} mask, "
         f"{cfg.train.device_pool_bg_frames} background slots; uploads on a side stream) equal "
         f"the host batches of the same seed and draws bit for bit (augmented crops, masks, "
@@ -2321,7 +2363,7 @@ def phase_pool(card, ctx):
     torch.cuda.synchronize()
     check(state.step == POOL_STEPS, "pool-mode training did not run")
     steps_ms = stats["step"][1:]
-    log(f"[10/17] pool-mode training (train.device_pool_frames={POOL_FRAMES}) for "
+    log(f"[10/18] pool-mode training (train.device_pool_frames={POOL_FRAMES}) for "
         f"{POOL_STEPS} steps: step mean {float(np.mean(steps_ms)):.2f} ms (steps 2.."
         f"{POOL_STEPS - 1}), H2D + pool gathers {float(np.mean(stats['h2d'][1:])):.2f} ms, host "
         f"wait {float(np.mean(stats['host_wait'][1:])):.2f} ms; pools {stats['pool']}  "
@@ -2446,7 +2488,7 @@ def phase_detector(card, scene):
                     meta.num_classes)
     check(abs(m_gt["mAP"] - 100 / 101) < 1e-9 and abs(m_gt["AP50"] - 100 / 101) < 1e-9,
           f"GT boxes as detections: {m_gt}")
-    log(f"[12/17] {len(keys)} images letterboxed to {rc.input_size}^2 in batches of "
+    log(f"[12/18] {len(keys)} images letterboxed to {rc.input_size}^2 in batches of "
         f"{DET_BATCH}; GT boxes as detections: mAP = AP50 = {m_gt['mAP']:.6f} (100/101, the "
         f"top of coco_map's 101-point interpolation)")
     res, models = {}, {}
@@ -2501,7 +2543,7 @@ def phase_detector(card, scene):
         with torch.inference_mode():
             t["launches_plain"] = _launches(lambda: plain(x))
             t["launches_tta"] = _launches(lambda: tta(x))
-        log(f"[12/17] yolox-x {norm} ({t['params'] / 1e6:.2f} M params, bf16, batch {DET_BATCH} at "
+        log(f"[12/18] yolox-x {norm} ({t['params'] / 1e6:.2f} M params, bf16, batch {DET_BATCH} at "
             f"640^2): forward {t['forward_ms']:.2f} ms; plain detection (forward + decode + "
             f"NMS, conf {DET_CONF_PLAIN}) {t['plain_ms']:.2f} ms = {t['plain_img_s']:.1f} "
             f"images/s, NMS {t['nms_plain_ms']:.3f} ms ({100 * t['nms_share_plain']:.1f}%), "
@@ -2511,7 +2553,7 @@ def phase_detector(card, scene):
             f"{t['tta_img_s']:.1f} images/s, NMS {t['nms_tta_ms']:.3f} ms "
             f"({100 * t['nms_share_tta']:.2f}%), {t['launches_tta']} kernels and copies a "
             f"batch, peak {t['peak_gb']:.2f} GB (CUDA events)  [{card}]")
-        log(f"[12/17] {norm}: the card's NMS == a numpy greedy NMS on the same raw rows, every "
+        log(f"[12/18] {norm}: the card's NMS == a numpy greedy NMS on the same raw rows, every "
             f"image (kept {t['kept_plain']} plain, {t['kept_tta']} under TTA; scores vs "
             f"numpy's decode {t['decode_err']:.1e}); random weights score mAP "
             f"{t['map_random']:.4f} on the scene's GT boxes")
@@ -2534,7 +2576,7 @@ def phase_detector(card, scene):
             check(errs[norm] <= DET_PARITY_TOL and all(torch.isfinite(o).all()
                                                        for o in outs["cuda"]),
                   f"yolox-x {norm} fp32 card vs CPU: {errs[norm]} > {DET_PARITY_TOL}")
-    log(f"[12/17] yolox-x fp32 card vs CPU on 2 images, TF32 off: raw outputs within "
+    log(f"[12/18] yolox-x fp32 card vs CPU on 2 images, TF32 off: raw outputs within "
         f"GN {errs['GN']:.2e} / BN {errs['BN']:.2e} of each level's largest magnitude "
         f"(limit {DET_PARITY_TOL})")
     torch.cuda.empty_cache()
@@ -2573,7 +2615,7 @@ def phase_two_stage(card, scene, tmp):
           and all(np.isfinite(r["bbox_est"]).all() and 0 < r["score"] <= 1
                   for v in handoff.values() for r in v), "test_yolox's handoff json")
     rate = re.search(r"([0-9.]+) images/s in detection", proc.stdout)
-    log(f"[13/17] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv (yolox-x GN "
+    log(f"[13/18] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv (yolox-x GN "
         f"bf16, TTA 5 scales x flip, batch 8, random weights): {N_IMAGES} images, {n_rows} "
         f"rows in the handoff json; {rate.group(1) if rate else '?'} images/s in detection "
         f"(host clock after the copy back), {cli_s:.1f} s for the whole CLI with the process "
@@ -2613,7 +2655,7 @@ def phase_two_stage(card, scene, tmp):
     ar_keys = ("AR", "AR_vsd", "AR_mssd", "AR_mspd")
     check(all(np.isfinite(scores[k]) and 0.0 <= scores[k] <= 1.0 for k in ar_keys),
           f"two-stage scores {scores}")
-    log(f"[13/17] test_gdrn (flagship Config(), bf16) on the handoff json with "
+    log(f"[13/18] test_gdrn (flagship Config(), bf16) on the handoff json with "
         f"model.load_dets_test=True (top 1 per object): {served.group(1)} ROIs in "
         f"{served.group(2)} batches, {served.group(3)} ROI/s, p50 {served.group(4)} ms a batch "
         f"(host clock after synchronize), {gdrn_s:.1f} s in all; {forwards[0]} forwards, "
@@ -2636,7 +2678,7 @@ def phase_two_stage(card, scene, tmp):
     check(drawn == sorted(os.path.basename(p) for p in imgs[:DEMO_IMAGES]),
           f"demo_gdrn drew {drawn}")
     n_obj = sum(int(n) for n in re.findall(r"\((\d+) objects\)", proc.stdout))
-    log(f"[13/17] python -m gdrnpp_bop2022_torch.tools.demo_gdrn with yolox-x inline (GN, bf16, "
+    log(f"[13/18] python -m gdrnpp_bop2022_torch.tools.demo_gdrn with yolox-x inline (GN, bf16, "
         f"conf 0.3) and the flagship GDRN on {DEMO_IMAGES} images: {n_obj} posed objects drawn, "
         f"{demo_s:.1f} s with the process start  [{card}]")
     return {"launches": launches, "forwards": forwards[0], "rois": len(results),
@@ -2698,7 +2740,7 @@ def _yx_pick_batch(card, nc):
         torch.cuda.empty_cache()
         if tried[B] is not None and tried[B] < YX_MEM_GB:
             break
-    log(f"[14/17] yolox-x GN bf16, one training step at {YX_PROBE_SIZE}^2: peak "
+    log(f"[14/18] yolox-x GN bf16, one training step at {YX_PROBE_SIZE}^2: peak "
         "max_memory_allocated " + ", ".join(
             f"batch {b}: " + (f"{gb:.2f} GB" if gb is not None else "out of memory")
             for b, gb in tried.items()) + f" (limit {YX_MEM_GB} GB)  [{card}]")
@@ -2727,7 +2769,7 @@ def _yx_profile(card, state, batch, B):
     from gdrnpp_bop2022_torch.engine.yolox_trainer import make_yolox_train_step
     step = make_yolox_train_step()
     wall_ms, busy, n_k, ev = profile_calls(lambda: step(state, batch), TRAIN_PROFILE_STEPS)
-    log(f"[14/17] profiled yolox-x training step at batch {B}, 640^2 ({TRAIN_PROFILE_STEPS} "
+    log(f"[14/18] profiled yolox-x training step at batch {B}, 640^2 ({TRAIN_PROFILE_STEPS} "
         f"steps, the batch on the card): {wall_ms:.2f} ms wall, {busy:.2f} ms of device time "
         f"({100 * busy / wall_ms:.1f}% busy), {n_k} kernels and copies; top (ms per step, "
         f"count): " + "; ".join(f"{k[:60]} {ms:.2f} ({c})" for k, ms, c in ev[:TRAIN_PROFILE_TOP])
@@ -2798,7 +2840,7 @@ def _yx_recipe(card, scene, tmp):
     loss_ema = _yx_loss(state.model.eval(), held, state.ema_state_dict())
     state.model.train()
     ratio = {k: loss_ema[k] / loss0[k] for k in loss0}
-    log(f"[14/17] on a batch of {B} drawn from the {YX_HELD} images held apart, initial -> EMA "
+    log(f"[14/18] on a batch of {B} drawn from the {YX_HELD} images held apart, initial -> EMA "
         "weights: " + "; ".join(f"{k} {loss0[k]:.4f} -> {loss_ema[k]:.4f} ({ratio[k]:.3f}x)"
                                 for k in loss0) + f" (each term must fall below {YX_LOSS_DROP}x)")
     check(all(np.isfinite(v) and ratio[k] < YX_LOSS_DROP for k, v in loss_ema.items()
@@ -2822,7 +2864,7 @@ def _yx_recipe(card, scene, tmp):
                                                  held["gt_labels"], held["gt_valid"]),
                             iters=5, warmup=1)
     del flat, bd, ol, cl
-    log(f"[14/17] trained configs.yolox('ycbv') (yolox-x {sum(p.numel() for p in state.model.parameters()) / 1e6:.2f} M "
+    log(f"[14/18] trained configs.yolox('ycbv') (yolox-x {sum(p.numel() for p in state.model.parameters()) / 1e6:.2f} M "
         f"params, GN, bf16, Ranger {rc.basic_lr_per_img * B:.2e} at batch {B}, warmup "
         f"{YX_WARMUP}, clip 35, EMA 0.9998, mosaic + mixup + HSV + flip, multiscale "
         f"{rc.random_size} x 32 every {rc.multiscale_period}, no-aug + L1 for the last "
@@ -2830,7 +2872,7 @@ def _yx_recipe(card, scene, tmp):
         f"{len(records)} images: sizes logged {sizes}; total_loss logged every "
         f"{YX_LOG_PERIOD}: " + " ".join(f"{r['total_loss']:.3f}" for r in rows)
         + f"  [{card}]")
-    log(f"[14/17] yolox-x training step at batch {B} (CUDA events, steps {TRAIN_SKIP + 1}.."
+    log(f"[14/18] yolox-x training step at batch {B} (CUDA events, steps {TRAIN_SKIP + 1}.."
         f"{YX_STEPS - 1}): p50 {pct(steps_ms, 50):.2f} ms, p99 {pct(steps_ms, 99):.2f} ms = "
         f"{img_s:.1f} images/s; per step mean: H2D {split['h2d']:.2f} ms, multiscale resize "
         f"{split['resize']:.2f} ms, forward + loss + backward {split['fwd_bwd']:.2f} ms (simOTA "
@@ -2853,7 +2895,7 @@ def _yx_recipe(card, scene, tmp):
                     for k, v in state.optimizer.state[p].items()))
     check(same, "the yolox checkpoint did not restore params, EMA and optimizer state bit "
           "for bit")
-    log(f"[14/17] checkpoint of iteration {YX_STEPS} "
+    log(f"[14/18] checkpoint of iteration {YX_STEPS} "
         f"({os.path.getsize(mgr.path(YX_STEPS)) / 1e9:.2f} GB) restored on the card: params, "
         f"EMA and Ranger state bit for bit")
     del fresh, model
@@ -2911,7 +2953,7 @@ def _yx_bn(card, scene, tmp):
             err = max(err, float((got.double() - want).abs().max() / want.abs().max()))
     check(len(captured) == len(bns) and err <= YX_BN_TOL,
           f"BN running statistics vs a float64 recomputation: {err} > {YX_BN_TOL}")
-    log(f"[14/17] BN variant (yolox-x, norm BN, bf16, batch {YX_BN_BATCH} at 640^2): "
+    log(f"[14/18] BN variant (yolox-x, norm BN, bf16, batch {YX_BN_BATCH} at 640^2): "
         f"{YX_BN_STEPS} iterations through train_yolox moved the running statistics of all "
         f"{len(bns)} BatchNorms; one more step's update equals 0.97 old + 0.03 x the batch's "
         f"biased mean and variance recomputed in float64 from each BN's input within "
@@ -2981,7 +3023,7 @@ def _yx_parity(card, nc=3):
     check(n_fg > 0 and torch.equal(got["cuda"][0], got["cpu"][0])
           and torch.equal(got["cuda"][1], got["cpu"][1]) and iou_err <= 1e-6,
           f"simOTA card vs CPU: fg / matched GT differ or IoU {iou_err}")
-    log(f"[14/17] card vs CPU, TF32 off: one fp32 training step of a BN YOLOX (dep 0.33, wid "
+    log(f"[14/18] card vs CPU, TF32 off: one fp32 training step of a BN YOLOX (dep 0.33, wid "
         f"0.125, batch 2 at 128^2, Ranger): loss within {loss_err:.2e} relative (limit "
         f"{YX_PAR_LOSS_TOL}), gradients within {grad_err:.2e} (limit {YX_PAR_GRAD_TOL}), "
         f"BN statistics after the step within {stats_err:.2e} (limit {YX_PAR_TOL}) of each "
@@ -3045,7 +3087,7 @@ def _yx_learns(card, tmp):
     ap50 = max(a for _, a in evals)
     check(state.step == YX_LEARN_STEPS and ap50 >= YX_LEARN_AP50,
           f"yolox_s on the two-class split: AP50 {evals} (need {YX_LEARN_AP50})")
-    log(f"[14/17] yolox_s (GN, bf16, SGD 0.02/64 per image, batch 8 at 64^2, L1 and clean "
+    log(f"[14/18] yolox_s (GN, bf16, SGD 0.02/64 per image, batch 8 at 64^2, L1 and clean "
         f"images throughout, multiscale +-1) learns {len(recs)} two-class images in "
         f"{YX_LEARN_STEPS} iterations ({wall:.1f} s): AP50 of the EMA weights "
         + ", ".join(f"{a:.3f} @ {it}" for it, a in evals)
@@ -3081,7 +3123,7 @@ def phase_detector_train(card, scene, tmp):
           "test_yolox --ckpt's handoff json")
     check("WARNING" not in proc.stdout, "test_yolox --ckpt ran on random weights")
     m_ap = proc.stdout.strip().splitlines()[-1]
-    log(f"[14/17] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv --ckpt "
+    log(f"[14/18] python -m gdrnpp_bop2022_torch.tools.test_yolox --config ycbv --ckpt "
         f"<out>/ckpt_yolox (the trained EMA weights, TTA): {len(handoff)} images, {n_rows} rows "
         f"in the handoff json, {m_ap} on the scene, {cli_s:.1f} s with the process start; "
         f"phase 14 in {time.perf_counter() - t0:.1f} s  [{card}]")
@@ -3150,7 +3192,7 @@ def _variant(card, tag, what, over, ln_per_fwd, rgbd, src, i, tmp):
     f32 = replace_cfg(cfg, {"model.compute_dtype": "float32"})
     with no_tf32():
         errs = _parity(f32, {k: v[:2].float() if v.is_floating_point() else v[:2]
-                             for k, v in rb.items()}, f"{tag} ({what})", "[15/17]")
+                             for k, v in rb.items()}, f"{tag} ({what})", "[15/18]")
     rec = {"what": what, "params_M": n_params / 1e6, "out_res": r, "rois": len(results),
            "forwards": n_fwd, "b1_launches": launches,
            "b1_per_forward": launches / n_fwd, "rois_per_sec": stats["rois_per_sec"],
@@ -3159,7 +3201,7 @@ def _variant(card, tag, what, over, ln_per_fwd, rgbd, src, i, tmp):
            "profile": {"wall_ms": wall_ms, "device_ms": busy_ms, "kernels": n_k,
                        "top": [(k[:60], ms, c) for k, ms, c in ev[:VARIANT_PROFILE_TOP]]},
            "seconds": time.perf_counter() - t0}
-    log(f"[15/17] {tag} {what}: {n_params / 1e6:.2f} M parameters, output {r}^2; served "
+    log(f"[15/18] {tag} {what}: {n_params / 1e6:.2f} M parameters, output {r}^2; served "
         f"{len(results)} ROIs in {nb} batches of {BATCH} + warm-up: {n_fwd} forwards, "
         f"layer_norm launches {launches} = {ln_per_fwd} x {n_fwd}; rows finite, "
         f"max|R^T R - I| = {orth:.2e}; serving {stats['rois_per_sec']:.1f} ROI/s, p50 "
@@ -3197,7 +3239,7 @@ def phase_variants(card, scene, bank, tmp):
     for i, (tag, what, over, ln_per_fwd, is_rgbd) in enumerate(VARIANTS):
         out[tag] = _variant(card, tag, what, over, ln_per_fwd, is_rgbd,
                             rgbd if is_rgbd else rgb, i, tmp)
-    log(f"[15/17] phase 15 (variants V1-V6) in {time.perf_counter() - t0:.1f} s  [{card}]")
+    log(f"[15/18] phase 15 (variants V1-V6) in {time.perf_counter() - t0:.1f} s  [{card}]")
     return out
 
 
@@ -3235,7 +3277,7 @@ def phase_sweep(card, scene, tmp):
     t0 = time.perf_counter()
     lmo = make_rgbd_scene(os.path.join(root, "lmo"), np.random.RandomState(SEED + 16),
                           dataset="lmo", scene_id=LMO_SCENE)
-    log(f"[16/17] lmo scene: {N_IMAGES} 480x640 RGB-D images x {len(lmo['meta'].id2obj)} "
+    log(f"[16/18] lmo scene: {N_IMAGES} 480x640 RGB-D images x {len(lmo['meta'].id2obj)} "
         f"ellipsoids (lmo's {len(lmo['meta'].id2obj)} object ids and camera, analytic depth) in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -3278,13 +3320,13 @@ def phase_sweep(card, scene, tmp):
                    "b2_launches": st["launches"]["render_depth_xyz"],
                    "detect_images_per_s": float(det_rates[i]), "roi_per_s": float(roi_rates[i]),
                    **{k: scores[k] for k in ar_keys}}
-        log(f"[16/17] sweep {ds}: test_yolox (yolox-x, bf16, random weights) {per[ds]['handoff_rows']} "
+        log(f"[16/18] sweep {ds}: test_yolox (yolox-x, bf16, random weights) {per[ds]['handoff_rows']} "
             f"rows in the handoff json, {det_rates[i]} images/s in detection; test_gdrn "
             f"({ds}_convnext_base, bf16, seed {SEED}) {st['n_rois']} ROIs at {roi_rates[i]} ROI/s, "
             f"{st['forwards']} forwards, B1 launches {st['launches']['layer_norm']} = 40 x "
             f"{st['forwards']}; scoring: B2 launches {st['launches']['render_depth_xyz']}; "
             + " ".join(f"{k}={scores[k]:.4f}" for k in ar_keys) + f"  [{card}]")
-    log(f"[16/17] python -m gdrnpp_bop2022_torch.tools.run_bop_sweep --datasets "
+    log(f"[16/18] python -m gdrnpp_bop2022_torch.tools.run_bop_sweep --datasets "
         f"{' '.join(SWEEP_DATASETS)} --mode eval (4 stage processes): mean_AR "
         f"{summary['mean_AR']:.4f}, {sweep_s:.1f} s  [{card}]")
 
@@ -3304,7 +3346,7 @@ def phase_sweep(card, scene, tmp):
     check(lmo_gt_b2 > 0 and all(lmo_gt[k] == 1.0 for k in ar_keys),
           f"lmo GT poses as estimates: B2 launches {lmo_gt_b2}, "
           f"{({k: lmo_gt[k] for k in ar_keys})}")
-    log(f"[16/17] score_csv --dataset lmo on the lmo scene's GT poses as estimates "
+    log(f"[16/18] score_csv --dataset lmo on the lmo scene's GT poses as estimates "
         f"({sum(len(v) for v in gt.values())} rows): AR = AR_vsd = AR_mssd = AR_mspd = 1.0, "
         f"B2 launches {lmo_gt_b2}; {time.perf_counter() - t0:.1f} s  [{card}]")
 
@@ -3346,7 +3388,7 @@ def phase_sweep(card, scene, tmp):
     check(so_b2 > 0 and all(0.0 <= so_scores[k] <= 1.0 for k in ("AR", "AR_vsd")),
           f"score_csv on the merged SO CSV: B2 launches {so_b2}, {so_scores}")
     so_s = time.perf_counter() - t0
-    log(f"[16/17] per-object path: test_gdrn --config ycbvSO/{{{','.join(SO_OBJECTS)}}} (one "
+    log(f"[16/18] per-object path: test_gdrn --config ycbvSO/{{{','.join(SO_OBJECTS)}}} (one "
         f"class, class-agnostic heads, bf16, seed {SEED}) {n_rois} ROIs each, {so_fwd} forwards, "
         f"B1 launches {so_b1} = 40 x {so_fwd}; merge_so_results {n_merged} rows, "
         f"process_results_time: one time per image over {len(times)} images; score_csv on the "
@@ -3370,10 +3412,10 @@ def phase_sweep(card, scene, tmp):
         poses[tag] = (np.stack([r["R"] for r in results]), np.stack([r["t"] for r in results]))
     d = max(float(np.abs(a - b).max()) for a, b in zip(poses["checkpoint"], poses["stripped"]))
     check(d <= STRIP_POSE_TOL, f"stripped weights serve other poses: max diff {d}")
-    log(f"[16/17] strip_ckpt --use-ema on phase 10's checkpoint ({os.path.getsize(full) / 1e6:.1f} "
+    log(f"[16/18] strip_ckpt --use-ema on phase 10's checkpoint ({os.path.getsize(full) / 1e6:.1f} "
         f"MB with the optimizer) -> {os.path.getsize(stripped) / 1e6:.1f} MB; test_gdrn --weights "
         f"on each serves {n_rois} ROIs, poses equal within {d:.2e}; {time.perf_counter() - t0:.1f} s")
-    log(f"[16/17] phase 16 in {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    log(f"[16/18] phase 16 in {time.perf_counter() - t_phase:.1f} s  [{card}]")
     return {"sweep": per, "mean_AR": summary["mean_AR"], "sweep_s": sweep_s,
             "b1_sweep": sum(p["b1_launches"] for p in per.values()),
             "b2_sweep": sum(p["b2_launches"] for p in per.values()),
@@ -3442,7 +3484,7 @@ def phase_export(card, tmp):
         size = os.path.getsize(os.path.join(out, export_model.PROGRAM)) / 1e6
         rec[dtype] = {"export_s": export_s, "program_mb": size, "b1_nodes": n_nodes,
                       "b1_launches": launches, "rot_diff": d_rot, "trans_diff": d_t, **times}
-        log(f"[17/17] export_model --config default --batch-size {BATCH} ({dtype}"
+        log(f"[17/18] export_model --config default --batch-size {BATCH} ({dtype}"
             f"{', TF32 off' if dtype == 'float32' else ''}): traced, saved, reloaded and self-checked in {export_s:.1f} s, "
             f"{size:.1f} MB program + weights.pth; reloaded: {n_nodes} gdrnpp.layer_norm nodes, B1 "
             f"launches {launches} a forward; vs the eager model rot {d_rot:.2e}, trans {d_t:.2e} "
@@ -3555,7 +3597,7 @@ def phase_aux(card):
         b_s, o_s = n_bytes / H100_BYTES_PER_S, n_ops / H100_FP32_FLOPS
         rec[name] = {"ms": ms, "cpu_s": cpu_s, "err": err, "bound_ms": max(b_s, o_s) * 1e3,
                      "bound_by": "bytes" if b_s >= o_s else "operations"}
-        log(f"[17/17] {name} {what}: card {ms:.3f} ms (CUDA events), bound "
+        log(f"[17/18] {name} {what}: card {ms:.3f} ms (CUDA events), bound "
             f"{rec[name]['bound_ms']:.4f} ms ({rec[name]['bound_by']}), the CPU {cpu_s:.2f} s "
             f"(host clock); card vs CPU: {err}  [{card}]")
 
@@ -3660,15 +3702,15 @@ def phase_aux(card):
           and [e["counts"] for e in enc] == [e["counts"] for e in enc_np],
           "RLE: round trip or native vs numpy bytes differ")
     rec["rle"] = {"native_ms": native_ms, "numpy_ms": numpy_ms}
-    log(f"[17/17] RLE codec (native/rle.cpp built with g++): {len(masks)} masks of "
+    log(f"[17/18] RLE codec (native/rle.cpp built with g++): {len(masks)} masks of "
         f"{masks[0].shape[0]}x{masks[0].shape[1]}, round trip exact, bytes equal to the numpy "
         f"path; encode + decode {native_ms:.3f} ms a mask native, encode {numpy_ms:.3f} ms "
         f"numpy (host clock)")
-    log(f"[17/17] auxiliary ops in {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    log(f"[17/18] auxiliary ops in {time.perf_counter() - t_phase:.1f} s  [{card}]")
     return rec
 
 
-def _parity(cfg, batch, tag, phase="[9/17]"):
+def _parity(cfg, batch, tag, phase="[9/18]"):
     from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
     from gdrnpp_bop2022_torch.utils.weights import seeded_state_dict
     outs = {}
@@ -3758,6 +3800,376 @@ def opt_ema_times(card):
     return t
 
 
+# ---------------------------------------------------------------------------
+# phase 18: int8 serving, remat, the demo's depth refine, data parallelism
+# ---------------------------------------------------------------------------
+
+def _block_int8_accs(blk, x):
+    """The int8 accumulators of one ConvNeXt block's two MLP products on its
+    input x (NCHW), as the block computes them, each held to an int32
+    matmul of the same codes on the CPU (its first INT8_CPU_ROWS rows) and
+    to a float64 product of them on the card (all rows; exact: |acc| <
+    127^2 K < 2^53)."""
+    from gdrnpp_bop2022_torch.models.backbones.convnext import (dense_int8, int8_codes,
+                                                                int8_matmul)
+    from gdrnpp_bop2022_torch.models.layers import conv2d
+    h = conv2d(blk.conv_dw, x, blk.dtype)
+    h = blk.norm.forward_nhwc(h.contiguous(memory_format=torch.channels_last)
+                              .permute(0, 2, 3, 1)).to(blk.dtype)
+    out = []
+    for fc in (blk.mlp.fc1, blk.mlp.fc2):
+        h2 = h.reshape(-1, h.shape[-1])
+        xq, _, wq, _ = int8_codes(h2, fc.weight)
+        acc = int8_matmul(xq, wq)
+        check(acc.is_cuda and acc.dtype == torch.int32, "int8 accumulators not int32 on the card")
+        n = INT8_CPU_ROWS
+        cpu = xq[:n].cpu().int() @ wq.cpu().int().T
+        check(torch.equal(acc[:n].cpu(), cpu), "torch._int_mm != the CPU's int32 matmul")
+        full = xq.double() @ wq.double().T
+        check(torch.equal(acc.double(), full), "torch._int_mm != the exact product")
+        out.append((tuple(xq.shape), tuple(wq.shape), int(acc.abs().max())))
+        h = blk.act(dense_int8(h, fc.weight, fc.bias)) if fc is blk.mlp.fc1 else h
+    return out
+
+
+def _pose_diff(a, b):
+    """Max rotation angle (deg) and translation (cm) between two outputs."""
+    from gdrnpp_bop2022_torch.geometry.rotations import angular_distance
+    ang = angular_distance(a["rot"].float(), b["rot"].float()) * (180.0 / math.pi)
+    dt = torch.linalg.vector_norm(a["trans"].float() - b["trans"].float(), dim=-1) * 100.0
+    return float(ang.max()), float(ang.mean()), float(dt.max()), float(dt.mean())
+
+
+def phase_int8(card, serve):
+    """(a) the flagship with backbone.int8_mlp=True on phase 4's batch of 64
+    ROIs, the same weights as the bf16 model: one block's int8 accumulators
+    exact, the poses' difference from bf16, forward times in turns, B1's
+    launches a forward."""
+    from gdrnpp_bop2022_torch.config import Config, replace_cfg
+    from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
+    from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm
+    m16, rb = serve["model"], serve["rb"]
+    m8 = build_gdrn(replace_cfg(Config(), {"model.pose_net.backbone.int8_mlp": True}))
+    m8.load_state_dict(m16.state_dict(), strict=True)
+    blk = m8.backbone.stages[INT8_BLOCK[0]].blocks[INT8_BLOCK[1]]
+    check(blk.int8_mlp and not m8.training, "the int8 model does not serve int8 MLPs")
+    seen, body = {}, blk.body            # the stage calls each block's body
+
+    def spy(x, mask=None):
+        seen.setdefault("x", x)
+        return body(x, mask)
+    blk.body = spy
+    with torch.inference_mode():
+        layer_norm.launches = 0
+        out8 = m8(**rb)
+        torch.cuda.synchronize()
+        launches = layer_norm.launches
+        del blk.body
+        out16 = m16(**rb)
+        accs = _block_int8_accs(blk, seen["x"])
+        for k in ("rot", "trans", "coor_x", "region"):
+            check(bool(torch.isfinite(out8[k]).all()), f"int8 {k} not finite")
+        diff = _pose_diff(out8, out16)
+        t16a = cuda_ms(lambda: m16(**rb), iters=10)
+        t8a = cuda_ms(lambda: m8(**rb), iters=10)
+        t8b = cuda_ms(lambda: m8(**rb), iters=10)
+        t16b = cuda_ms(lambda: m16(**rb), iters=10)
+    check(launches == LN_PER_FORWARD, f"int8 forward: {launches} B1 launches, not 40")
+    log(f"[18/18] int8 MLPs (Config(), backbone.int8_mlp=True, batch {BATCH}, bf16 elsewhere): "
+        f"stage {INT8_BLOCK[0]} block {INT8_BLOCK[1]}'s torch._int_mm accumulators "
+        f"{accs} equal the CPU's int32 matmul of the same codes ({INT8_CPU_ROWS} rows) "
+        f"and the exact product (all rows); B1 {launches} launches a forward  [{card}]")
+    log(f"[18/18] int8 vs bf16 poses on the same 64 ROIs (seeded weights): rotation max "
+        f"{diff[0]:.3f} deg mean {diff[1]:.3f} deg, translation max {diff[2]:.3f} cm mean "
+        f"{diff[3]:.3f} cm  [{card}]")
+    log(f"[18/18] forward at batch {BATCH} (CUDA events, 10 calls, in turns bf16 int8 int8 bf16): "
+        f"bf16 {t16a:.3f} / {t16b:.3f} ms, int8 {t8a:.3f} / {t8b:.3f} ms  [{card}]")
+    del m8
+    return {"b1_launches": launches, "bf16_ms": [t16a, t16b], "int8_ms": [t8a, t8b],
+            "rot_max_deg": diff[0], "rot_mean_deg": diff[1], "t_max_cm": diff[2],
+            "t_mean_cm": diff[3], "accumulators": accs}
+
+
+def _remat_run(cfg, batches, bnk, remat):
+    """REMAT_STEPS train steps of cfg (remat on or off) on the given
+    batches from the seed's weights: losses, B1 launches, peak memory, step
+    times (CUDA events)."""
+    from gdrnpp_bop2022_torch.config import replace_cfg
+    from gdrnpp_bop2022_torch.engine.train_state import create_train_state
+    from gdrnpp_bop2022_torch.engine.train_step import make_train_step
+    from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
+    from gdrnpp_bop2022_torch.models.layers import DropMasks
+    from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm, layer_norm_backward
+    from gdrnpp_bop2022_torch.solver.ranger import build_optimizer
+    cfg = replace_cfg(cfg, {"model.pose_net.backbone.remat": remat})
+    torch.manual_seed(cfg.train.seed)
+    model = build_gdrn(cfg, train=True)
+    check(all(st.remat == remat for st in model.backbone.stages), "remat not built")
+    state = create_train_state(model, build_optimizer(cfg, lambda s: REMAT_LR, model),
+                               ema_decay=cfg.model.ema_decay)
+    step = make_train_step(cfg, bnk["sym_bank"], bnk["sym_mask"])
+    drop = DropMasks(gen=torch.Generator(device="cuda").manual_seed(SEED))
+    losses, ms, fwd, bwd = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches:
+        layer_norm.launches = layer_norm_backward.launches = 0
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        m = step(state, b, drop=drop)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        losses.append(float(m["total_loss"]))
+        fwd.append(layer_norm.launches)
+        bwd.append(layer_norm_backward.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, model
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms": ms, "fwd": fwd, "bwd": bwd, "peak_gb": peak}
+
+
+def phase_remat(card, ctx):
+    """(b) the RGB recipe at batch 48 for REMAT_STEPS steps with and without
+    backbone.remat on the same batches: the losses, B1's forward launches
+    (76 against 40 a step; backward 40), peak memory and step times."""
+    from gdrnpp_bop2022_torch.config import parse_opts, replace_cfg
+    from gdrnpp_bop2022_torch.configs import ycbv_convnext_base
+    from gdrnpp_bop2022_torch.datasets.train_loader import GdrnTrainLoader
+    from gdrnpp_bop2022_torch.engine.trainer import device_bank, prep_train_batch
+    cfg = replace_cfg(ycbv_convnext_base(), parse_opts(ctx["common"]))
+    meta, pc = ctx["meta"], cfg.model.pose_net
+    bnk = device_bank(ctx["bank"], pc.geo_head.num_regions, "cuda")
+    loader = GdrnTrainLoader(ctx["records"], TRAIN_BATCH, meta.width, meta.height,
+                             seed=SEED + 40, num_workers=1)
+    try:
+        batches = [prep_train_batch(next(loader), bnk, cfg, "cuda") for _ in range(REMAT_STEPS)]
+    finally:
+        loader.close()
+    off = _remat_run(cfg, batches, bnk, False)
+    on = _remat_run(cfg, batches, bnk, True)
+    check(off["losses"][0] == on["losses"][0], f"remat step 1 loss {on['losses'][0]} != "
+          f"{off['losses'][0]}")
+    for a, b in zip(off["losses"], on["losses"]):
+        check(abs(a - b) <= REMAT_LOSS_TOL * abs(a), f"remat losses {on['losses']} vs "
+              f"{off['losses']}")
+    check(off["fwd"] == [LN_PER_FORWARD] * REMAT_STEPS and off["bwd"] == off["fwd"],
+          f"B1 without remat: {off['fwd']} forward, {off['bwd']} backward launches a step")
+    check(on["fwd"] == [REMAT_LN_FWD] * REMAT_STEPS and on["bwd"] == off["bwd"],
+          f"B1 with remat: {on['fwd']} forward, {on['bwd']} backward launches a step")
+    check(on["peak_gb"] < off["peak_gb"], f"remat peak {on['peak_gb']:.2f} GB not below "
+          f"{off['peak_gb']:.2f} GB")
+    p50 = lambda v: float(np.median(v[1:]))     # noqa: E731  (step 1 warms up)
+    log(f"[18/18] remat: configs.ycbv_convnext_base() at batch {TRAIN_BATCH}, {REMAT_STEPS} "
+        f"steps on the same batches (lr {REMAT_LR}): losses without "
+        f"{[round(v, 6) for v in off['losses']]} with {[round(v, 6) for v in on['losses']]}; "
+        f"B1 forward launches a step {off['fwd'][0]} -> {on['fwd'][0]}, backward "
+        f"{off['bwd'][0]} -> {on['bwd'][0]}; peak max_memory_allocated "
+        f"{off['peak_gb']:.2f} -> {on['peak_gb']:.2f} GB; step p50 (CUDA events, steps 2..) "
+        f"{p50(off['ms']):.1f} -> {p50(on['ms']):.1f} ms  [{card}]")
+    return {"off": off, "on": on, "launches": sum(on["fwd"])}
+
+
+def phase_demo_refine(card, scene, tmp):
+    """(c) demo_gdrn --dets --depth-images --depth-refine --cam-K on the RGB-D
+    scene (the flagship RGB model, seeded) against run_gdrn_inference(
+    post_mode="depth_refine") on the same detections, and B2's launches."""
+    from gdrnpp_bop2022_torch.bop.inout import load_json, save_json
+    from gdrnpp_bop2022_torch.bop.models3d import ModelBank
+    from gdrnpp_bop2022_torch.config import Config
+    from gdrnpp_bop2022_torch.datasets.bop_data import (index_bop_split, load_detections,
+                                                        make_records_by_image)
+    from gdrnpp_bop2022_torch.datasets.test_loader import iter_test_batches
+    from gdrnpp_bop2022_torch.engine.inference import run_gdrn_inference
+    from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
+    from gdrnpp_bop2022_torch.ops.raster import pack_faces_cuda, render_depth_xyz_cuda
+    from gdrnpp_bop2022_torch.tools import demo_gdrn
+    from gdrnpp_bop2022_torch.utils.weights import seeded_state_dict
+    sdir = os.path.join(scene["split_dir"], "000048")
+    dets_json = os.path.join(tmp, "demo_dets.json")
+    save_json(dets_json, {f"{int(k.split('/')[1]):06d}": v
+                          for k, v in load_json(scene["det_file"]).items()})
+    root = os.path.dirname(os.path.dirname(scene["models_dir"]))
+    t0 = time.perf_counter()
+    render_depth_xyz_cuda.launches = pack_faces_cuda.launches = 0
+    (rows, written), _ = _quiet(demo_gdrn.main, [
+        "--config", "default", "--seed", str(SEED), "--images", os.path.join(sdir, "rgb", "*.png"),
+        "--dets", dets_json, "--depth-images", os.path.join(sdir, "depth", "*.png"),
+        "--depth-scale", "10000", "--depth-refine", "--cam-K",
+        *[str(v) for v in scene["K"].ravel()], "--out", os.path.join(tmp, "demo_refine"),
+        "--opts", f"datasets.root={root!r}"])
+    demo_s = time.perf_counter() - t0
+    launches = {"raster": render_depth_xyz_cuda.launches, "pack": pack_faces_cuda.launches}
+    cfg = Config()
+    pc = cfg.model.pose_net
+    model = build_gdrn(cfg)
+    model.load_state_dict(seeded_state_dict(model, SEED), strict=True)
+    meta = scene["meta"]
+    bank = ModelBank.from_bop_models_dir(scene["models_dir"], num_fps=pc.geo_head.num_regions)
+    by_im = make_records_by_image(index_bop_split(scene["split_dir"], meta))
+    want = run_gdrn_inference(
+        model, iter_test_batches(by_im, load_detections(scene["det_file"], meta),
+                                 batch_size=BATCH, with_depth=True,
+                                 depth_factor=meta.depth_factor),
+        bank.extents, input_res=pc.input_res, output_res=pc.output_res,
+        pixel_mean=cfg.model.pixel_mean, pixel_std=cfg.model.pixel_std,
+        post_mode="depth_refine", model_bank=bank, mask_loss_type=pc.loss.mask_loss_type)
+    key = lambda r: (r["im_id"], r["obj_id"])     # noqa: E731
+    got, exp = sorted(rows, key=key), sorted(want, key=key)
+    check(len(got) == len(exp) == N_IMAGES * DETS_PER_IMAGE and
+          [key(r) for r in got] == [key(r) for r in exp], "demo rows != run_gdrn_inference's rows")
+    dt = max(float(np.abs(g["t"] - w["t"]).max()) for g, w in zip(got, exp))
+    dR = max(float(np.abs(g["R"] - w["R"]).max()) for g, w in zip(got, exp))
+    check(dt <= DEMO_REFINE_T_TOL and dR <= DEMO_REFINE_T_TOL,
+          f"demo depth refine vs run_gdrn_inference: |dt| {dt:.3e} m |dR| {dR:.3e}")
+    check(launches["raster"] > 0 and len(written) == N_IMAGES, f"demo: {launches}, "
+          f"{len(written)} images drawn")
+    log(f"[18/18] demo_gdrn --dets --depth-images --depth-scale 10000 --depth-refine --cam-K "
+        f"(flagship RGB, seeded) on the RGB-D scene's {N_IMAGES} images: {len(got)} poses, "
+        f"translations within {dt:.2e} m and R within {dR:.2e} of run_gdrn_inference("
+        f"post_mode='depth_refine') on the same detections; B2 {launches['raster']} raster + "
+        f"{launches['pack']} pack launches; {demo_s:.1f} s  [{card}]")
+    del model
+    return {"launches": launches["raster"], "pack_launches": launches["pack"], "t_diff_m": dt,
+            "rows": len(got)}
+
+
+def _spawn_ranks(module, args, world, out_dir, timeout=600):
+    """``world`` processes of ``python -m module args --num-processes world
+    --process-id r --coordinator localhost:port`` (gloo, all on this card);
+    waits for each and fails if one did."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for r in range(world):
+        log_f = open(os.path.join(out_dir, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", module, *args, "--num-processes", str(world),
+             "--process-id", str(r), "--coordinator", f"localhost:{port}",
+             "--dist-backend", "gloo"], stdout=log_f, stderr=subprocess.STDOUT, cwd=here), log_f))
+    try:
+        for p, f in procs:
+            p.wait(timeout=timeout)
+            f.close()
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                check(False, f"{module} rank {r} failed: {f.read()[-3000:]}")
+
+
+def _ckpt_params(out_dir):
+    from gdrnpp_bop2022_torch.engine.checkpoint import CheckpointManager
+    mgr = CheckpointManager(os.path.join(out_dir, "ckpt"))
+    step = mgr.latest_step()
+    check(step == DDP_STEPS, f"{out_dir}: checkpoint of step {step}")
+    return torch.load(mgr.path(step), map_location="cpu", weights_only=False)["model"]
+
+
+def _first_loss(out_dir):
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        rows = [json.loads(line) for line in f]
+    return next(r["total_loss"] for r in rows if r.get("iteration") == 1)
+
+
+def phase_ddp(card, ctx, scene, tmp):
+    """(d) train_gdrn at world 1 (one process) and at world 2 (two processes
+    over gloo on this one card, NCCL refusing two ranks on one device) for
+    DDP_STEPS steps of the RGB recipe; test_gdrn over two processes against
+    one."""
+    from gdrnpp_bop2022_torch.config import parse_opts, replace_cfg
+    from gdrnpp_bop2022_torch.configs import ycbv_convnext_base
+    from gdrnpp_bop2022_torch.engine.trainer import train_gdrn
+    from gdrnpp_bop2022_torch.models.gdrn import build_gdrn
+    opts = ctx["common"] + [f"train.log_period=1", "solver.checkpoint_period_epochs=1000"]
+    out1, out2 = os.path.join(tmp, "ddp_w1"), os.path.join(tmp, "ddp_w2")
+    os.makedirs(out2)
+    cfg1 = replace_cfg(ycbv_convnext_base(), parse_opts(opts + [f"output_dir={out1!r}"]))
+    torch.manual_seed(cfg1.train.seed)
+    init = {k: v.detach().cpu().clone() for k, v in build_gdrn(cfg1, train=True)
+            .state_dict().items()}
+    t0 = time.perf_counter()
+    _quiet(train_gdrn, cfg1, ctx["records"], ctx["bank"], None, DDP_STEPS, False, ctx["meta"])
+    w1_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _spawn_ranks("gdrnpp_bop2022_torch.tools.train_gdrn",
+                 ["--config", "ycbv_convnext_base", "--max-iters", str(DDP_STEPS),
+                  "--device", "cuda:0", "--opts", *opts, f"output_dir={out2!r}"],
+                 DDP_WORLD, out2)
+    w2_s = time.perf_counter() - t0
+    p1, p2 = _ckpt_params(out1), _ckpt_params(out2)
+    num = den = 0.0
+    worst = 0.0
+    for k, v in init.items():
+        if not v.is_floating_point() or "running" in k:
+            continue
+        d1, d2 = p1[k].float() - v.float(), p2[k].float() - v.float()
+        num += float((d2 - d1).square().sum())
+        den += float(d1.square().sum())
+        worst = max(worst, float((p2[k] - p1[k]).abs().max()))
+    rel = math.sqrt(num / max(den, 1e-30))
+    l1, l2 = _first_loss(out1), _first_loss(out2)
+    stats = [json.load(open(os.path.join(out2, f"stats_rank{r}.json"))) for r in range(DDP_WORLD)]
+    check(all(s["world"] == DDP_WORLD and s["steps"] == DDP_STEPS for s in stats),
+          f"world-2 stats {stats}")
+    b1 = [s["launches"]["layer_norm"] for s in stats]
+    b2 = [s["launches"]["render_depth_xyz"] for s in stats]
+    check(all(n == LN_PER_FORWARD * DDP_STEPS for n in b1) and all(n == DDP_STEPS for n in b2),
+          f"world-2 launches a rank: B1 {b1}, B2 {b2}")
+    check(abs(l2 - l1) <= DDP_LOSS_TOL * abs(l1), f"step-1 loss world 2 {l2} vs world 1 {l1}")
+    check(rel <= DDP_UPDATE_TOL, f"world 2's parameter updates differ from world 1's by "
+          f"{rel:.3e} of their norm")
+    log(f"[18/18] DDP: train_gdrn (configs.ycbv_convnext_base(), global batch {TRAIN_BATCH}, "
+        f"{DDP_STEPS} steps) at world 1 ({w1_s:.1f} s in process) and world 2 (two processes "
+        f"over gloo on this card, {TRAIN_BATCH // DDP_WORLD} ROIs a rank, {w2_s:.1f} s with "
+        f"the process starts): step-1 loss {l1:.6f} vs {l2:.6f} (mean over the ranks); "
+        f"parameter updates differ by {rel:.3e} of their L2 norm (max |dp| {worst:.3e}); "
+        f"per rank B1 {b1[0]} forward launches, B2 {b2[0]} (each rank renders the global "
+        f"batch's XYZ), peak {stats[0]['peak_gb']:.2f} GB a rank. What DDP gains needs "
+        f"several cards: not measured  [{card}]")
+
+    # test_gdrn over two processes against one
+    root = os.path.dirname(os.path.dirname(scene["models_dir"]))
+    base = ["--config", "default", "--seed", str(SEED), "--opts", f"datasets.root={root!r}",
+            "model.load_dets_test=True", f"datasets.det_files_test=({scene['det_file']!r},)",
+            "val.save_results_only=True"]
+    one, two = os.path.join(tmp, "tg_one"), os.path.join(tmp, "tg_two")
+    os.makedirs(two)
+    from gdrnpp_bop2022_torch.tools import test_gdrn
+    _quiet(test_gdrn.main, base + [f"output_dir={one!r}"])
+    t0 = time.perf_counter()
+    _spawn_ranks("gdrnpp_bop2022_torch.tools.test_gdrn", base + [f"output_dir={two!r}"],
+                 DDP_WORLD, two)
+    tg_s = time.perf_counter() - t0
+    from gdrnpp_bop2022_torch.bop.inout import load_bop_results
+    inf = os.path.join("inference", "ycbv_test")
+    r1 = {(r["scene_id"], r["im_id"], r["obj_id"]): r
+          for r in load_bop_results(os.path.join(one, inf, "poses.csv"))}
+    r2 = {(r["scene_id"], r["im_id"], r["obj_id"]): r
+          for r in load_bop_results(os.path.join(two, inf, "poses.csv"))}
+    check(r1.keys() == r2.keys() and len(r1) == N_IMAGES * DETS_PER_IMAGE,
+          f"test_gdrn rows: {len(r1)} vs {len(r2)}")
+    dR = max(float(np.abs(np.asarray(r1[k]["R"]) - np.asarray(r2[k]["R"])).max()) for k in r1)
+    dt = max(float(np.abs(np.asarray(r1[k]["t"]) - np.asarray(r2[k]["t"])).max()) for k in r1)
+    check(dR <= DDP_EVAL_R_TOL and dt <= DDP_EVAL_T_TOL_MM,
+          f"test_gdrn two processes vs one: |dR| {dR:.3e}, |dt| {dt:.3e} mm")
+    with open(os.path.join(two, inf, "stats.json")) as f:
+        st = json.load(f)
+    log(f"[18/18] test_gdrn --num-processes 2 on this card (images dealt round-robin, rows "
+        f"gathered over gloo): {len(r2)} rows = one process's, |dR| {dR:.2e}, |dt| {dt:.2e} mm; "
+        f"B1 {st['launches']['layer_norm']} launches over {st['forwards']} forwards; "
+        f"{tg_s:.1f} s with the process starts  [{card}]")
+    return {"loss_w1": l1, "loss_w2": l2, "update_rel": rel, "b1_per_rank": b1[0],
+            "b2_per_rank": b2[0], "launches": sum(b1), "raster_launches": sum(b2),
+            "eval_dR": dR, "eval_dt_mm": dt}
+
 def timing_only(root):
     """B1's and B2's times at the flagship shapes for the package under
     `root`, through the wrappers every version has, and where the package
@@ -3809,19 +4221,20 @@ def main():
         scene = make_rgbd_scene(os.path.join(tmp, "ycbv"), np.random.RandomState(SEED + 2))
         bank = ModelBank.from_bop_models_dir(scene["models_dir"])
         check(bank.faces.shape == (21, 4096, 3), f"bank faces {bank.faces.shape}")
-        log(f"[3/17] RGB-D scene and model bank written and loaded in "
+        log(f"[3/18] RGB-D scene and model bank written and loaded in "
             f"{time.perf_counter() - t0:.1f} s (analytic depth, no rendering)")
         b2 = phase_raster(card, scene, bank)
         rb, serve = phase_slice(card, os.path.join(tmp, "rgb"))
         ln_launches, r_launches, rb_rgbd, times = phase_rgbd_slice(card, scene, bank, tmp)
         phase_refine(card, scene, bank)
         pnp = phase_pnp(card, scene, bank, serve, tmp)
+        p18 = {"int8": phase_int8(card, serve)}
         del serve
         score = phase_score(card, scene, bank, tmp)
         train = phase_train(card, scene, tmp)
         pool = phase_pool(card, train["ctx"])
         rgbd = phase_train_rgbd(card, train["ctx"])
-        del train["ctx"]
+        ctx = train.pop("ctx")
         lnb = train["lnb"]
         torch.cuda.empty_cache()
         det = phase_detector(card, scene)
@@ -3833,9 +4246,15 @@ def main():
         t17 = time.perf_counter()
         export = phase_export(card, tmp)
         aux = phase_aux(card)
-        log(f"[17/17] phase 17 in {time.perf_counter() - t17:.1f} s  [{card}]")
+        log(f"[17/18] phase 17 in {time.perf_counter() - t17:.1f} s  [{card}]")
+        t18 = time.perf_counter()
+        p18["remat"] = phase_remat(card, ctx)
+        p18["demo"] = phase_demo_refine(card, scene, tmp)
+        p18["ddp"] = phase_ddp(card, ctx, scene, tmp)
+        log(f"[18/18] phase 18 in {time.perf_counter() - t18:.1f} s (+ its int8 part after "
+            f"phase 7)  [{card}]")
     share = 100.0 * 2 * b2["ms"] / times["p50_ms"]
-    log(f"[5/17] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
+    log(f"[5/18] B2 share of an RGB-D batch: 2 calls x {b2['ms']:.4f} ms of a "
         f"{times['p50_ms']:.2f} ms p50 batch = {share:.2f}%  [{card}]")
     phase_parity(rb, rb_rgbd)
     bad = sorted(m for m in sys.modules
@@ -3846,6 +4265,8 @@ def main():
     log("variants: " + json.dumps(variants) + f"  [{card}]")
     log("sweep, per-object path and strip: " + json.dumps(sweep) + f"  [{card}]")
     log("export and auxiliary ops: " + json.dumps({"export": export, "aux": aux})
+        + f"  [{card}]")
+    log("int8, remat, demo depth refine and data parallelism: " + json.dumps(p18)
         + f"  [{card}]")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -3862,7 +4283,10 @@ def main():
                               "two_stage": two["launches"],
                               "variants": sum(v["b1_launches"] for v in variants.values()),
                               "sweep": sweep["b1_sweep"], "so": sweep["b1_so"],
-                              "export": export["bfloat16"]["b1_launches"]}},
+                              "export": export["bfloat16"]["b1_launches"],
+                              "int8_serving": p18["int8"]["b1_launches"],
+                              "remat_train": p18["remat"]["launches"],
+                              "ddp_train": p18["ddp"]["launches"]}},
         {"name": "layer_norm_backward", "route": "cuda",
          "source": "gdrnpp_bop2022_torch/csrc/layer_norm.cu",
          "replaces": "gdrnpp_bop2022_tpu/ops/pallas_ln.py:26 (its VJP)",
@@ -3885,7 +4309,9 @@ def main():
          "launches_by_path": {"rgbd_depth_refine": r_launches, "scoring": score["launches"],
                               "train": train["launches"]["raster"],
                               "train_rgbd": rgbd["launches"]["raster"],
-                              "sweep_scoring": sweep["b2_sweep"], "so_scoring": sweep["b2_so"]},
+                              "sweep_scoring": sweep["b2_sweep"], "so_scoring": sweep["b2_so"],
+                              "demo_depth_refine": p18["demo"]["launches"],
+                              "ddp_train": p18["ddp"]["raster_launches"]},
          "vsd_shapes": b2["vsd_shapes"], "train_attribute_mode": train["b2"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -3,8 +3,9 @@
 The port's own copy of ``gdrnpp_bop2022_tpu/config.py`` (standard library
 only, kept verbatim so both packages read the same ``Config()``;
 ``tests/test_torch_config.py`` holds the two equal field by field). Some
-field comments describe the JAX package's TPU lowerings (``dw_mode``,
-``int8_mlp``, ``remat``); the port reads only the fields its modules use.
+field comments describe the JAX package's TPU lowerings; of the fields the
+JAX package reads, the port ignores only ``dw_mode``, a TPU lowering of the
+same depthwise convolution.
 
 Overrides: ``cfg = replace_cfg(cfg, {"solver.lr": 1e-3})`` or CLI-style
 ``--opts solver.lr=1e-3``.

@@ -28,7 +28,7 @@ class RoiMeta:
 
 
 def iter_test_batches(
-    images_index: Dict[str, dict],     # scene_im_id -> {rgb_path, K, ...}
+    images_index: Dict[str, dict],     # scene_im_id -> {rgb_path or image, K, ...}
     detections: Dict[str, list],       # scene_im_id -> [det dicts]
     batch_size: int = 64,
     images_per_batch: int = 16,
@@ -88,7 +88,7 @@ def iter_test_batches(
         return batch
 
     def load_entry(entry):
-        img = load_image(entry["rgb_path"])
+        img = entry["image"] if "image" in entry else load_image(entry["rgb_path"])
         dep = None
         if with_depth:
             from .bop_data import load_depth

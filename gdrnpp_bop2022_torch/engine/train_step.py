@@ -17,6 +17,7 @@ import torch
 
 from ..geometry.rotations import angular_distance
 from ..losses.gdrn_losses import compute_gdrn_losses
+from ..parallel.distributed import sync_grads
 
 MODEL_INPUTS = ("roi_img", "roi_labels", "roi_coord_2d", "roi_cams", "roi_centers",
                 "roi_whs", "roi_extents", "resize_ratios")
@@ -63,7 +64,11 @@ def make_train_step(cfg, sym_bank=None, sym_mask=None):
     the share of the run done). The EMA advances with each optimizer update
     (every step, or every k-th with ``solver.grad_accum_steps`` k).
     ``timer.mark(name)``, when given, is called after the backward
-    ("fwd_bwd") and after the optimizer and EMA ("opt_ema")."""
+    ("fwd_bwd") and after the optimizer and EMA ("opt_ema"). Under data
+    parallelism ``batch`` is the rank's slice and the gradients are
+    averaged over the ranks before the optimizer (its clipping included);
+    the metrics are the rank's (``parallel.mean_over_ranks`` gives the
+    global batch's)."""
 
     def train_step(state, batch: dict, timer=None, drop=None, progress: float = 1.0) -> dict:
         model = state.model
@@ -72,6 +77,7 @@ def make_train_step(cfg, sym_bank=None, sym_mask=None):
         outputs = forward_outputs(model, batch, drop, progress)
         total, metrics = loss_and_metrics(cfg, outputs, batch, sym_bank, sym_mask)
         total.backward()
+        sync_grads(model.parameters())
         if timer is not None:
             timer.mark("fwd_bwd")
         if state.optimizer.step():

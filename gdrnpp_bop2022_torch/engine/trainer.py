@@ -1,4 +1,4 @@
-"""Training driver: the do_train loop on one card.
+"""GDRN training: the do_train loop, on one card or one process per card.
 
 Port of ``gdrnpp_bop2022_tpu/engine/trainer.py`` (reference
 GDRN_Lite.do_train, core/gdrn_modeling/engine/engine.py:166-420) for
@@ -19,6 +19,15 @@ Every random draw of a step comes from the trainer's generators, one per
 purpose (bg, color, depth, dropout), seeded from ``cfg.train.seed`` and
 kept in checkpoints. Only the log period reads metrics back to the host.
 Offline XYZ (``xyz_online=False``) raises, as in the JAX package.
+
+Data parallel (``cfg.train.mesh_shape`` / ``mesh_axes`` over the ranks of
+``parallel.initialize_distributed``, one process per card): every rank
+loads and prepares the same global batch with the same draws, trains on
+its slice (``parallel.shard_batch``; drop masks drawn for the global batch
+and sliced), averages the gradients before clipping and the optimizer, and
+so holds the same parameters and EMA; the loss of a step is the global
+batch's, as under the JAX mesh. Only rank 0 writes metrics (averaged over
+the ranks), checkpoints and evaluations.
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ from ..ops.color_aug import apply_color_aug, draw_color_aug, draw_replace_backgr
     replace_background
 from ..ops.crop import roi_crop_resize
 from ..ops.depth_aug import draw_gdrn_depth_aug, gdrn_depth_aug
+from ..parallel.distributed import broadcast_module, is_main_process, mean_over_ranks
+from ..parallel.mesh import make_mesh, shard_batch
 from ..solver.lr_scheduler import build_lr_scheduler, flat_and_anneal_schedule
 from ..solver.ranger import build_optimizer
 from .batching import build_depth_rois, build_train_batch_online, trunc_mask_batch
@@ -285,15 +296,15 @@ def prep_train_batch(host_batch: dict, bank: dict, cfg: Config, device, gens=Non
 
 
 def _load_pretrained_backbone(model, path: str) -> None:
-    """A timm-named ConvNeXt state dict (optionally under "model", with or
-    without a "backbone." prefix) into model.backbone; every backbone
-    parameter must be in it."""
-    sd = torch.load(path, map_location="cpu", weights_only=False)
-    sd = sd.get("model", sd)
-    sd = {k[len("backbone."):] if k.startswith("backbone.") else k: v for k, v in sd.items()}
-    missing, _ = model.backbone.load_state_dict(sd, strict=False)
-    if missing:
-        raise KeyError(f"pretrained backbone {path} lacks {missing[:3]} ...")
+    """``backbone.pretrained`` into model.backbone (``utils/weights.py::
+    load_pretrained_backbone``: a timm ConvNeXt checkpoint, the stem
+    adapted to ``backbone.in_channels``, or an ``.npz`` of flax paths);
+    every backbone parameter must be in it."""
+    from ..utils.weights import load_pretrained_backbone
+    bb = model.cfg.backbone
+    model.backbone.load_state_dict(
+        load_pretrained_backbone(path, model.backbone, bb.name, bb.in_channels), strict=True)
+    print(f"loaded pretrained backbone from {path}", flush=True)
 
 
 def train_gdrn(cfg: Config, records, model_bank, records2=None,
@@ -317,10 +328,13 @@ def train_gdrn(cfg: Config, records, model_bank, records2=None,
 
     iters_per_epoch = max(len(records) // sc.ims_per_batch, 1)
     total_iters = max_iters or sc.total_epochs * iters_per_epoch
+    mesh = make_mesh(cfg.train.mesh_shape, cfg.train.mesh_axes)
+    main = is_main_process()
     torch.manual_seed(cfg.train.seed)
     model = build_gdrn(cfg, device=device, train=True)
     if pc.backbone.pretrained:
         _load_pretrained_backbone(model, pc.backbone.pretrained)
+    broadcast_module(model)
     # the schedule spans the run actually made (max_iters overrides epochs)
     if sc.lr_scheduler == "flat_and_anneal":
         sched = flat_and_anneal_schedule(
@@ -334,14 +348,14 @@ def train_gdrn(cfg: Config, records, model_bank, records2=None,
                                ema_warmup=cfg.model.ema_warmup_updates)
     state.generators = make_generators(cfg.train.seed, device)
     ckpt = CheckpointManager(os.path.join(cfg.output_dir, "ckpt"), max_to_keep=sc.max_to_keep)
-    if resume and ckpt.restore_latest(state) is not None:
+    if resume and ckpt.restore_latest(state) is not None and main:
         print(f"resumed from iter {state.step}", flush=True)
     start_iter = state.step
 
     bank = device_bank(model_bank, pc.geo_head.num_regions, device)
     step_fn = make_train_step(cfg, bank["sym_bank"], bank["sym_mask"])
-    writer = MetricsWriter(cfg.output_dir, total_iters, cfg.train.log_period,
-                           tensorboard=cfg.train.tensorboard)
+    writer = (MetricsWriter(cfg.output_dir, total_iters, cfg.train.log_period,
+                            tensorboard=cfg.train.tensorboard) if main else None)
     ckpt_period = max(sc.checkpoint_period_epochs * iters_per_epoch, 1)
     timer = StepTimer(enabled=stats is not None and device.type == "cuda")
     waits = []
@@ -366,7 +380,7 @@ def train_gdrn(cfg: Config, records, model_bank, records2=None,
         num_workers=tc.num_workers, num_builders=1 if pools is not None else tc.num_builders,
         cache_gb=tc.cache_gb, pools=pools)
     gens = state.generators
-    drop = DropMasks(gen=gens["dropout"])
+    drop = DropMasks(gen=gens["dropout"], shard=(mesh.index, mesh.size))
     try:
         t_w = time.perf_counter()
         host_batch = next(loader)
@@ -374,17 +388,20 @@ def train_gdrn(cfg: Config, records, model_bank, records2=None,
         data_wait_s = waits[-1]
         for it in range(start_iter, total_iters):
             timer.begin()
-            batch = prep_train_batch(host_batch, bank, cfg, device, gens=gens, timer=timer)
+            batch = shard_batch(prep_train_batch(host_batch, bank, cfg, device, gens=gens,
+                                                 timer=timer), mesh)
             metrics = step_fn(state, batch, timer, drop=drop,
                               progress=float(np.float32(it / max(total_iters, 1))))
             if (it + 1) % cfg.train.log_period == 0 or it == start_iter:
+                metrics = mean_over_ranks(metrics)
                 n_win = (it - start_iter) % cfg.train.log_period + 1
-                writer.write(it + 1, metrics, sched(it),
-                             data_wait_ms=data_wait_s / n_win * 1000.0)
+                if main:
+                    writer.write(it + 1, metrics, sched(it),
+                                 data_wait_ms=data_wait_s / n_win * 1000.0)
                 data_wait_s = 0.0
-            if (it + 1) % ckpt_period == 0 or (it + 1) == total_iters:
+            if main and ((it + 1) % ckpt_period == 0 or (it + 1) == total_iters):
                 ckpt.save(state, it + 1)
-            if (eval_fn is not None and cfg.train.eval_period > 0
+            if (main and eval_fn is not None and cfg.train.eval_period > 0
                     and ((it + 1) % cfg.train.eval_period == 0 or (it + 1) == total_iters)):
                 eval_metrics = eval_fn(state, it + 1)
                 if eval_metrics:
@@ -393,7 +410,7 @@ def train_gdrn(cfg: Config, records, model_bank, records2=None,
                     with open(writer.path, "a") as f:
                         f.write(json.dumps(row) + "\n")
                     print(f"eval @ {it + 1}: {eval_metrics}", flush=True)
-            if cfg.train.vis_period > 0 and (it + 1) % cfg.train.vis_period == 0:
+            if main and cfg.train.vis_period > 0 and (it + 1) % cfg.train.vis_period == 0:
                 _dump_batch(batch, cfg.output_dir, it + 1, writer)
             if it + 1 < total_iters:
                 t_w = time.perf_counter()

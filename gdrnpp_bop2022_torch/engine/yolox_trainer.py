@@ -1,4 +1,4 @@
-"""YOLOX training on one card.
+"""YOLOX training, on one card or one process per card.
 
 Port of ``gdrnpp_bop2022_tpu/engine/yolox_trainer.py`` (reference
 det/yolox/engine/yolox_trainer.py: the iteration loop with EMA, resume
@@ -13,6 +13,14 @@ iterations :336-356, the random multiscale resize every 10 iterations
   fp32 YOLOX loss with simOTA, the backward, clip-by-global-norm + Ranger or
   SGD with Nesterov, the EMA) -> ``metrics_yolox.json`` and checkpoints
   (``ckpt_yolox/``, ``ckpt_yolox_best/``).
+
+Data parallel (``mesh_shape`` over the ranks of
+``parallel.initialize_distributed``, one process per card): every rank
+loads, augments and resizes the same global batch, trains on its slice
+with the global batch's loss (``num_fg`` summed over the ranks) and BN
+statistics, averages the gradients before clipping and the optimizer, and
+takes precise BN's statistics over the ranks' slices; only rank 0 writes
+metrics, checkpoints and evaluations.
 
 The model starts from flax's default initialisers, as the JAX model does
 (``init_yolox_weights``). The EMA averages the parameters only; BatchNorm's
@@ -35,6 +43,9 @@ from ..models.yolox import build_yolox
 from ..models.yolox.darknet import BatchNormFp32
 from ..models.yolox.head import yolox_loss
 from ..models.yolox.yolox import resize_bilinear
+from ..parallel.distributed import (broadcast_module, is_main_process, mean_over_ranks,
+                                    sync_grads)
+from ..parallel.mesh import make_mesh, shard_batch
 from ..solver.ranger import SGD, Ranger, output_unit_dims
 from .checkpoint import CheckpointManager
 from .train_state import create_train_state
@@ -120,6 +131,7 @@ def make_yolox_train_step(strides=(8, 16, 32), use_l1: bool = False):
         losses = yolox_loss(outs, strides, batch["gt_boxes"], batch["gt_labels"],
                             batch["gt_valid"], use_l1=use_l1)
         losses["total_loss"].backward()
+        sync_grads(model.parameters())
         if timer is not None:
             timer.mark("fwd_bwd")
         if state.optimizer.step():
@@ -204,7 +216,7 @@ def train_yolox(records, num_classes: int, output_dir: str,
                 ema_decay: float = 0.9998,
                 norm: str = "GN",
                 precise_bn_iters: int = 0,
-                device="cuda", stats: Optional[dict] = None):
+                device="cuda", stats: Optional[dict] = None, mesh_shape=(-1,)):
     """Train YOLOX on DetRecords on ``device`` (the card unless the caller
     asks for the CPU; bf16 convolutions on the card, fp32 on the CPU).
     Returns the TrainState; resumes from the newest checkpoint in
@@ -222,13 +234,17 @@ def train_yolox(records, num_classes: int, output_dir: str,
     iterations train without mosaic and mixup, with the L1 loss, at
     ``input_size``. With ``stats`` (a dict): per-step CUDA-event times of
     each phase (h2d, resize, fwd_bwd, opt_ema, step; on the card) and the
-    host's waits on the loader (ms)."""
+    host's waits on the loader (ms). ``mesh_shape``: the data mesh over the
+    ranks ((-1,): all of them); ``batch_size`` is the global batch."""
     from ..datasets.yolox_loader import YoloxTrainLoader
 
     device = torch.device(device)
+    mesh = make_mesh(mesh_shape, ("data",))
+    main = is_main_process()
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = build_yolox(num_classes, size, norm=norm, device=device, dtype=dtype)
     init_yolox_weights(model, seed)
+    broadcast_module(model)
     model.train()
     if loader is None:
         loader = YoloxTrainLoader(records, batch_size, input_size, seed=seed, **(aug or {}))
@@ -242,7 +258,7 @@ def train_yolox(records, num_classes: int, output_dir: str,
         ema_decay=ema_decay)
     ckpt = CheckpointManager(os.path.join(output_dir, "ckpt_yolox"))
     best_ckpt = CheckpointManager(os.path.join(output_dir, "ckpt_yolox_best"), max_to_keep=1)
-    if ckpt.restore_latest(state) is not None:
+    if ckpt.restore_latest(state) is not None and main:
         print(f"yolox: resumed from iter {state.step}", flush=True)
     start_iter = state.step
 
@@ -292,8 +308,10 @@ def train_yolox(records, num_classes: int, output_dir: str,
                 batch["images"], batch["gt_boxes"] = multiscale_resize(
                     batch["images"], batch["gt_boxes"], cur_size)
             timer.mark("resize")
-            metrics = step_fn(state, batch, timer)
+            metrics = step_fn(state, shard_batch(batch, mesh), timer)
             if (it + 1) % log_period == 0 or it == start_iter:
+                metrics = mean_over_ranks(metrics)
+            if main and ((it + 1) % log_period == 0 or it == start_iter):
                 row = {k: float(v) for k, v in metrics.items()}
                 row["iteration"] = it + 1
                 row["img_size"] = cur_size
@@ -303,7 +321,7 @@ def train_yolox(records, num_classes: int, output_dir: str,
                 eta = (time.perf_counter() - t0) / done * (total_iters - it - 1)
                 print(f"yolox iter {it + 1}/{total_iters} loss {row['total_loss']:.3f} "
                       f"size {cur_size} eta {eta / 60:.1f}min", flush=True)
-            if (it + 1) % ckpt_period == 0 or (it + 1) == total_iters:
+            if main and ((it + 1) % ckpt_period == 0 or (it + 1) == total_iters):
                 ckpt.save(state, it + 1)
             if (eval_fn is not None and eval_period > 0
                     and ((it + 1) % eval_period == 0 or (it + 1) == total_iters)):
@@ -313,23 +331,25 @@ def train_yolox(records, num_classes: int, output_dir: str,
                     # PreciseBN hook, yolox_trainer.py:242-250)
                     bn = precise_bn_stats(
                         model, state.ema_state_dict(),
-                        (next(loader)["images"] for _ in range(precise_bn_iters)))
+                        (shard_batch(next(loader), mesh)["images"]
+                         for _ in range(precise_bn_iters)))
                     model.load_state_dict(bn, strict=False)
-                val_metrics = eval_fn(_eval_weights(state), it + 1)
-                row = {f"val/{k_}": float(v) for k_, v in val_metrics.items()}
-                row["iteration"] = it + 1
-                with open(metrics_path, "a") as f:
-                    f.write(json.dumps(row) + "\n")
-                val = float(val_metrics.get("AP50", -np.inf))
-                if val > best_val:
-                    best_val = val
-                    with open(best_val_path, "w") as f:
-                        json.dump({"best": best_val, "iteration": it + 1}, f)
-                    best_ckpt.save(state, it + 1)
-                    print(f"yolox eval @ {it + 1}: AP50={val:.4f} (new best)", flush=True)
-                else:
-                    print(f"yolox eval @ {it + 1}: AP50={val:.4f} "
-                          f"(best {best_val:.4f})", flush=True)
+                if main:
+                    val_metrics = eval_fn(_eval_weights(state), it + 1)
+                    row = {f"val/{k_}": float(v) for k_, v in val_metrics.items()}
+                    row["iteration"] = it + 1
+                    with open(metrics_path, "a") as f:
+                        f.write(json.dumps(row) + "\n")
+                    val = float(val_metrics.get("AP50", -np.inf))
+                    if val > best_val:
+                        best_val = val
+                        with open(best_val_path, "w") as f:
+                            json.dump({"best": best_val, "iteration": it + 1}, f)
+                        best_ckpt.save(state, it + 1)
+                        print(f"yolox eval @ {it + 1}: AP50={val:.4f} (new best)", flush=True)
+                    else:
+                        print(f"yolox eval @ {it + 1}: AP50={val:.4f} "
+                              f"(best {best_val:.4f})", flush=True)
             if it + 1 < total_iters:
                 t_w = time.perf_counter()
                 host_batch = next(loader)

@@ -10,6 +10,13 @@ reference: sum over the mask / mask count for the dense heads, means for the
 pose heads. Dense tensors are channel-last (B, H, W, C); masks (B, H, W).
 With ``use_mtl`` each term is weighted by the model's learned
 log-variance of its name.
+
+Data parallel (``parallel/``): each rank holds a slice of the global batch
+and the gradients are averaged over the ranks, so a masked term's count is
+the global batch's (``global_sum``) and its local sum is scaled by the
+world size; the ranks' average is then the global batch's loss, as under
+the JAX mesh. Plain means need nothing. In a world of one both are exact
+identities.
 """
 
 from __future__ import annotations
@@ -20,23 +27,26 @@ import torch.nn.functional as F
 
 from ..geometry.se3 import transform_pts
 from ..geometry.symmetry import get_closest_rot_batch
+from ..parallel.distributed import global_sum, world_size
 
 
 def masked_xyz_l1_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """L1 over the mask, over the mask's count. pred/gt (B, H, W, C), mask (B, H, W)."""
+    """L1 over the mask, over the mask's count (the global batch's).
+    pred/gt (B, H, W, C), mask (B, H, W)."""
     m = mask[..., None]
-    return (pred * m - gt * m).abs().sum() / mask.sum().clamp_min(1.0)
+    return (pred * m - gt * m).abs().sum() * world_size() / global_sum(mask.sum()).clamp_min(1.0)
 
 
 def _masked_sum_ce(logits, targets, mask):
     """The reference's masked CE: CE(logits * mask, targets * mask, "sum") /
-    n_mask. A masked-out pixel adds the constant log(C) with no gradient; it
-    is added in closed form so loss values match the reference's logs."""
+    n_mask (the global batch's). A masked-out pixel adds the constant log(C)
+    with no gradient; it is added in closed form so loss values match the
+    reference's logs."""
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
     n_mask = mask.sum()
     const = (mask.numel() - n_mask) * math.log(logits.shape[-1])
-    return ((nll * mask).sum() + const) / n_mask.clamp_min(1.0)
+    return ((nll * mask).sum() + const) * world_size() / global_sum(n_mask).clamp_min(1.0)
 
 
 def xyz_ce_loss(logits: torch.Tensor, gt_bins: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -69,9 +79,10 @@ def mask_loss(pred_logits: torch.Tensor, gt: torch.Tensor, loss_type: str = "L1"
         probs = torch.sigmoid(pred_logits).clamp(1e-7, 1 - 1e-7)
         pos = (gt > 0).to(probs.dtype)
         neg = 1.0 - pos
-        pos_loss = (-gt * torch.log(probs) * pos).sum()
-        neg_loss = (-torch.log(1.0 - probs) * neg).sum()
-        n_pos, n_neg = pos.sum(), neg.sum()
+        w = world_size()
+        pos_loss = (-gt * torch.log(probs) * pos).sum() * w
+        neg_loss = (-torch.log(1.0 - probs) * neg).sum() * w
+        n_pos, n_neg = global_sum(pos.sum()), global_sum(neg.sum())
         zero = torch.zeros_like(pos_loss)
         return (torch.where(n_pos > 0, pos_loss / n_pos.clamp_min(1.0), zero)
                 + torch.where(n_neg > 0, neg_loss / n_neg.clamp_min(1.0), zero))

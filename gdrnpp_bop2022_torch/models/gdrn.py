@@ -6,7 +6,9 @@ Port of ``gdrnpp_bop2022_tpu/models/gdrn.py`` with every variant it builds:
     B1), resnet34/50/101, resnet18_8s / resnet34_8s (dilated, stride 8),
     resnest50/101 and cspdarknet (YOLOX's CSPDarknet at width and depth 1,
     stage features 1-3 = dark3-5), each with ``backbone.in_channels`` input
-    channels (6 for early RGB-D fusion);
+    channels (6 for early RGB-D fusion); ConvNeXt takes ``backbone.int8_mlp``
+    (int8 MLPs when serving) and ``backbone.remat`` (blocks recomputed in
+    the backward pass), as the JAX package's does;
   * geo heads: ``top_down_doublemask_xyz_region``,
     ``top_down_mask_xyz_region``, ``conv_mask_xyz_region`` (at the stride
     of ``backbone.out_index``) and ``fpn_mask_xyz_region`` (stage features
@@ -102,7 +104,8 @@ def _build_backbone(bb, out_indices, in_chans: int, dtype):
     if bb.name not in _BACKBONES:
         raise ValueError(f"Unknown backbone: {bb.name}")
     build, widths = _BACKBONES[bb.name]
-    kw = {"gelu_exact": bb.gelu_exact} if "convnext" in bb.name else {}
+    kw = ({"gelu_exact": bb.gelu_exact, "int8_mlp": bb.int8_mlp, "remat": bb.remat}
+          if "convnext" in bb.name else {})
     model = build(out_indices=out_indices, in_chans=in_chans, dtype=dtype, **kw)
     return model, [widths[i] for i in out_indices]
 

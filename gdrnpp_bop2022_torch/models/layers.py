@@ -364,20 +364,30 @@ class DropMasks:
     """Where drop_path and DropBlock take their Bernoulli masks in training:
     drawn from ``gen`` (a ``torch.Generator`` on the activations' device),
     or taken from ``given``, a list of masks in the order the layers draw
-    them (a test feeds the masks the JAX package drew)."""
+    them (a test feeds the masks the JAX package drew). With ``shard=(r,
+    w)`` (data parallelism: this rank holds slice r of w of the global
+    batch) a mask is drawn for the global batch and the rank keeps its
+    slice, so every rank draws what a world of one draws."""
 
     def __init__(self, gen: Optional[torch.Generator] = None,
-                 given: Optional[List[torch.Tensor]] = None):
+                 given: Optional[List[torch.Tensor]] = None,
+                 shard: Tuple[int, int] = (0, 1)):
         if (gen is None) == (given is None):
             raise ValueError("DropMasks takes a generator or a list of masks")
         self.gen = gen
         self.given = None if given is None else list(given)
+        self.shard = shard
 
     def bernoulli(self, p: float, shape, device) -> torch.Tensor:
         """A bool mask of ``shape``, True with probability p (u < p, as
-        jax.random.bernoulli)."""
+        jax.random.bernoulli); ``shape[0]`` is the batch axis."""
         if self.given is None:
-            return torch.rand(shape, generator=self.gen, device=device) < p
+            r, w = self.shard
+            if w == 1:
+                return torch.rand(shape, generator=self.gen, device=device) < p
+            n = shape[0]
+            u = torch.rand((w * n,) + tuple(shape[1:]), generator=self.gen, device=device)
+            return u[r * n:(r + 1) * n] < p
         if not self.given:
             raise ValueError("DropMasks: more draws than given masks")
         m = self.given.pop(0).to(device=device, dtype=torch.bool)

@@ -31,6 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel.distributed import all_reduce_sum, world_size
 from ..layers import conv2d
 
 
@@ -55,7 +56,10 @@ class BatchNormFp32(nn.BatchNorm2d):
     variance E[x^2] - E[x]^2 (clipped at 0), in fp32, normalise the batch and
     update ``running_* = 0.97 running_* + 0.03 batch`` (torch's own
     BatchNorm2d would update the variance with the unbiased n / (n - 1)
-    times it)."""
+    times it). Under data parallelism the statistics are the global
+    batch's, as flax's BN over a sharded global array takes them: the sums
+    of x and x^2 are summed over the ranks (differentiably,
+    ``parallel.all_reduce_sum``)."""
 
     def __init__(self, num_channels: int):
         super().__init__(num_channels, eps=1e-3, momentum=0.03)
@@ -65,8 +69,15 @@ class BatchNormFp32(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x32, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps).to(x.dtype)
-        mean = x32.mean((0, 2, 3))
-        var = ((x32 * x32).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if world_size() == 1:
+            mean = x32.mean((0, 2, 3))
+            var = ((x32 * x32).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        else:
+            n = x32.numel() // x32.shape[1] * world_size()
+            sums = all_reduce_sum(torch.stack([x32.sum((0, 2, 3)),
+                                               (x32 * x32).sum((0, 2, 3))]))
+            mean = sums[0] / n
+            var = (sums[1] / n - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)

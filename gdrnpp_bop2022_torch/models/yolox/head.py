@@ -26,6 +26,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ...parallel.distributed import global_sum, world_size
 from .darknet import BaseConv, DWConv
 
 
@@ -201,7 +202,10 @@ def yolox_loss(outs: Sequence[torch.Tensor], strides: Sequence[int], gt_boxes: t
                                                 stride_tab, gt_boxes, gt_labels, gt_valid)
     B = fg.shape[0]
     fgf = fg.float()
-    num_fg = fgf.sum().clamp_min(1.0)
+    # the global batch's foreground count under data parallelism, each sum
+    # scaled by the world size (parallel/distributed.py); 1 and fgf.sum()
+    # in a world of one
+    num_fg = global_sum(fgf.sum()).clamp_min(1.0) / world_size()
     tgt_labels = torch.gather(gt_labels.long(), 1, matched_gt)
 
     # a foreground anchor's GT is valid: there matched_iou is its IoU

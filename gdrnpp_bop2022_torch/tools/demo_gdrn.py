@@ -2,21 +2,31 @@
 projected 3D boxes.
 
 The port's counterpart of ``tools/demo_gdrn.py`` (reference
-core/gdrn_modeling/demo/demo_gdrn.py, folder mode):
+core/gdrn_modeling/demo/demo_gdrn.py, folder and webcam modes):
 
     python -m gdrnpp_bop2022_torch.tools.demo_gdrn --config ycbv_convnext_base \\
-        --images 'demo/*.png' --weights gdrn.pth \\
+        (--images 'demo/*.png' | --camera 0 [--max-frames N]) --weights gdrn.pth \\
         (--yolox-weights yolox.pth [--yolox-norm BN] | --dets test_bboxes.json) \\
-        --out demo_out [--device cpu]
+        [--cam-K fx 0 cx 0 fy cy 0 0 1] [--depth-images 'demo/*_depth.png' \\
+        --depth-refine] --out demo_out [--device cpu]
 
-Detections come from the detector inline (``--yolox-weights``, or
-``--yolox-random-weights``; plain inference, no TTA, boxes above
-``--conf-thr``) or from a handoff json (``--dets``, keyed by image name or
-``0/<im_id>``). The poses come from ``engine.inference.run_gdrn_inference``
-(``post_mode="direct"``, the dataset's camera) over ``datasets.test_loader``
-batches of 64 ROIs. GDRN's weights: ``--weights`` (a .pth state dict or
-training checkpoint) or ``--seed``. Writes ``<out>/<image name>`` with each
-object's 3D box. Camera input and depth refinement are not ported.
+Frames come from image files (``--images``, sorted) or from a camera
+(``--camera`` index through ``cv2.VideoCapture``, BGR -> RGB, at most
+``--max-frames``, named ``camera_%06d.png``). Detections come from the
+detector inline (``--yolox-weights``, or ``--yolox-random-weights``; plain
+inference, no TTA, boxes above ``--conf-thr``) or from a handoff json
+(``--dets``, keyed by image name or ``0/<im_id>``). The poses come from
+``engine.inference.run_gdrn_inference`` over ``datasets.test_loader``
+batches of 64 ROIs, with ``--cam-K`` or the dataset's camera:
+``post_mode="direct"``, or with ``--depth-refine`` ``"depth_refine"``: the
+sensor depth (``--depth-images``, sorted and paired with the sorted images,
+raw values / ``--depth-scale`` in meters) cropped nearest-neighbour and
+the translation refined by ``eval/pnp_eval.py::depth_refine_batch``
+(``--depth-refine-iters``, ``--depth-refine-threshold``) through kernel B2,
+as the JAX demo refines an RGB model's poses. Depth refinement needs file
+input; RGB-D models are refused (the demo serves RGB models). GDRN's
+weights: ``--weights`` (a .pth state dict or training checkpoint) or
+``--seed``. Writes ``<out>/<image name>`` with each object's 3D box.
 """
 
 from __future__ import annotations
@@ -58,12 +68,42 @@ def _dets_for(dets_map, name):
     return None
 
 
+def camera_frames(index: int, max_frames: int):
+    """(name, RGB frame) from ``cv2.VideoCapture(index)``, at most
+    ``max_frames``, named camera_%06d.png."""
+    import cv2
+    cap = cv2.VideoCapture(index)
+    if not cap.isOpened():
+        raise SystemExit(f"cannot open camera {index}")
+    try:
+        for i in range(max_frames):
+            ok, frame = cap.read()
+            if not ok:
+                break
+            yield f"camera_{i:06d}.png", np.ascontiguousarray(frame[..., ::-1])
+    finally:
+        cap.release()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="default",
                     help="'default' (Config()) or a GDRN config of configs.py")
     ap.add_argument("--opts", nargs="*", default=[], help="key=value overrides")
-    ap.add_argument("--images", nargs="+", required=True, help="image files or globs")
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--images", nargs="+", help="image files or globs")
+    src.add_argument("--camera", type=int, help="a camera index (cv2.VideoCapture)")
+    ap.add_argument("--max-frames", type=int, default=300, help="frames read from --camera")
+    ap.add_argument("--cam-K", nargs=9, type=float, default=None,
+                    help="the camera matrix, row-major (default: the dataset's)")
+    ap.add_argument("--depth-images", nargs="+", default=None,
+                    help="depth files or globs, sorted and paired with the sorted --images")
+    ap.add_argument("--depth-scale", type=float, default=1000.0,
+                    help="raw depth / this = meters (BOP uint16 mm PNGs: 1000)")
+    ap.add_argument("--depth-refine", action="store_true",
+                    help="refine the translations against the sensor depth")
+    ap.add_argument("--depth-refine-iters", type=int, default=2)
+    ap.add_argument("--depth-refine-threshold", type=float, default=0.8)
     w = ap.add_mutually_exclusive_group(required=True)
     w.add_argument("--weights", help="GDRN: a .pth state dict with the reference's names")
     w.add_argument("--seed", type=int, help="GDRN: random weights drawn from this seed")
@@ -81,6 +121,10 @@ def main(argv=None):
     ap.add_argument("--out", default="demo_out")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.depth_refine and not args.depth_images:
+        ap.error("--depth-refine needs --depth-images")
+    if args.depth_refine and args.camera is not None:
+        ap.error("--depth-refine needs file input (--images)")
 
     import cv2
 
@@ -105,10 +149,21 @@ def main(argv=None):
     meta = get_meta(cfg.val.dataset_name)
     bank = ModelBank.from_bop_models_dir(meta.models_dir(cfg.datasets.root),
                                          num_fps=cfg.model.pose_net.geo_head.num_regions)
-    K = meta.camera_matrix.astype(np.float32)
-    paths = sorted(sum((glob.glob(p) for p in args.images), []))
-    if not paths:
-        raise SystemExit("no images matched --images")
+    K = (np.asarray(args.cam_K, np.float32).reshape(3, 3) if args.cam_K
+         else meta.camera_matrix.astype(np.float32))
+    if args.camera is not None:
+        frames = list(camera_frames(args.camera, args.max_frames))
+    else:
+        paths = sorted(sum((glob.glob(p) for p in args.images), []))
+        if not paths:
+            raise SystemExit("no images matched --images")
+        frames = [(os.path.basename(p), p) for p in paths]
+    depth_paths = None
+    if args.depth_refine:
+        depth_paths = sorted(sum((glob.glob(p) for p in args.depth_images), []))
+        if len(depth_paths) < len(frames):
+            raise SystemExit(f"{len(depth_paths)} depth images for {len(frames)} images")
+    image = lambda src: load_image(src) if isinstance(src, str) else src   # noqa: E731
 
     if args.dets:
         dets_map, detect = load_json(args.dets), None
@@ -119,11 +174,14 @@ def main(argv=None):
 
     obj2label, label2obj = meta.obj_id_to_label(), meta.label_to_obj_id()
     index, dets, names = {}, {}, {}
-    for i, p in enumerate(paths):
-        name = os.path.basename(p)
+    for i, (name, src) in enumerate(frames):
         key = f"0/{i}"
         names[i] = name
-        index[key] = {"rgb_path": p, "K": K, "scene_id": 0, "im_id": i}
+        index[key] = ({"rgb_path": src} if isinstance(src, str) else {"image": src})
+        index[key].update(K=K, scene_id=0, im_id=i)
+        if depth_paths:
+            # load_depth gives raw * depth_scale / 1000 m: raw / --depth-scale
+            index[key].update(depth_path=depth_paths[i], depth_scale=1000.0 / args.depth_scale)
         if detect is None:
             rows = _dets_for(dets_map, name)
             if rows is None:
@@ -138,7 +196,7 @@ def main(argv=None):
                          for r in rows if r["obj_id"] in obj2label]
         else:
             t0 = time.perf_counter()
-            boxes, labels, scores = detect(load_image(p))
+            boxes, labels, scores = detect(image(src))
             dt = time.perf_counter() - t0
             dets[key] = [{"obj_id": label2obj[int(lab)], "label": int(lab),
                           "bbox_xyxy": np.asarray(b, np.float32), "score": float(s),
@@ -156,10 +214,13 @@ def main(argv=None):
     model.load_state_dict(sd, strict=True)
     pc = cfg.model.pose_net
     results = run_gdrn_inference(
-        model, iter_test_batches(index, dets, batch_size=64), bank.extents,
-        input_res=pc.input_res, output_res=pc.output_res, pixel_mean=cfg.model.pixel_mean,
-        pixel_std=cfg.model.pixel_std, mask_loss_type=pc.loss.mask_loss_type,
-        coord_2d_type=pc.pnp_net.coord_2d_type)
+        model, iter_test_batches(index, dets, batch_size=64, with_depth=args.depth_refine),
+        bank.extents, input_res=pc.input_res, output_res=pc.output_res,
+        pixel_mean=cfg.model.pixel_mean, pixel_std=cfg.model.pixel_std,
+        post_mode="depth_refine" if args.depth_refine else "direct", model_bank=bank,
+        depth_refine_iters=args.depth_refine_iters,
+        depth_refine_threshold=args.depth_refine_threshold,
+        mask_loss_type=pc.loss.mask_loss_type, coord_2d_type=pc.pnp_net.coord_2d_type)
 
     os.makedirs(args.out, exist_ok=True)
     by_im = {}
@@ -167,7 +228,7 @@ def main(argv=None):
         by_im.setdefault(r["im_id"], []).append(r)
     written = []
     for i, rows in sorted(by_im.items()):
-        vis = load_image(paths[i])
+        vis = image(frames[i][1])
         for r in rows:
             lab = obj2label[r["obj_id"]]
             vis = draw_pose_bbox(vis, K, r["R"], r["t"], bank.extents[lab],

@@ -1,7 +1,7 @@
-"""GDRN evaluation: detections -> poses -> BOP CSV -> scores, on one card.
+"""GDRN evaluation: detections -> poses -> BOP CSV -> scores, on one card or over processes.
 
 The port's counterpart of ``tools/test_gdrn.py`` (reference test_gdrn.sh ->
-main_gdrn.py --eval-only), as a single process:
+main_gdrn.py --eval-only):
 
     python -m gdrnpp_bop2022_torch.tools.test_gdrn --config ycbv_convnext_base_rgbd \
         --weights model_final.pth [--opts val.use_pnp=True ...] [--device cpu]
@@ -15,6 +15,13 @@ or from ``--seed N`` (random weights drawn from a seed). Writes
 ``<output_dir>/inference/<test dataset>/poses.csv`` (BOP19),
 ``scores.json`` and ``stats.json`` (ROIs, forwards, ROI/s, and the kernel
 launches: B1's while serving, B2's while scoring) and prints the scores.
+
+Several processes (``--num-processes N --process-id R --coordinator
+host:port``, or torchrun): the test images are dealt round-robin over
+their sorted keys (image i to rank i % N), each rank serves its share, the
+rows are gathered over gloo (so ranks may share one card), and rank 0
+alone writes ``poses.csv`` (rank order), scores and ``stats.json`` (counts
+summed over the ranks); the other ranks return their gathered rows.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import numpy as np
 import torch
 
 from ..datasets.meta import register_meta_files
+from ..parallel.distributed import (add_distributed_args, gather_results, init_from_args,
+                                    is_main_process, rank, shutdown, world_size)
 
 PNP_TYPES = ("ransac_pnp", "uncertainty_pnp", "net_iter_pnp")
 
@@ -74,6 +83,10 @@ def run_eval(cfg, meta, bank, model, device="cuda", seed: int = 0):
     split_dir = os.path.join(cfg.datasets.root, meta.name, split)
     records = index_bop_split(split_dir, meta)
     by_im = make_records_by_image(records)
+    served = by_im
+    if world_size() > 1:
+        keys = sorted(by_im)
+        served = {k: by_im[k] for i, k in enumerate(keys) if i % world_size() == rank()}
     if cfg.model.load_dets_test:
         if not cfg.datasets.det_files_test:
             raise ValueError("model.load_dets_test needs datasets.det_files_test")
@@ -92,7 +105,7 @@ def run_eval(cfg, meta, bank, model, device="cuda", seed: int = 0):
     forwards = [0]
     hook = model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
     ln0 = layer_norm.launches
-    batches = iter_test_batches(by_im, dets, batch_size=64,
+    batches = iter_test_batches(served, dets, batch_size=64,
                                 with_depth=post_mode == "depth_refine" or cfg.input.with_depth,
                                 depth_factor=meta.depth_factor)
     stats = {}
@@ -116,6 +129,14 @@ def run_eval(cfg, meta, bank, model, device="cuda", seed: int = 0):
         print(f"served {stats['n_instances']} ROIs in {stats['n_batches']} batches of 64 "
               f"({post_mode}, {stats['device']}): {stats['rois_per_sec']:.1f} ROI/s, p50 "
               f"{stats['p50_ms']:.2f} ms a batch")
+    if world_size() > 1:
+        results = gather_results(results)
+        runs = gather_results([run])
+        if not is_main_process():
+            return results, None
+        run = {"n_rois": len(results), "forwards": sum(r["forwards"] for r in runs),
+               "launches": {"layer_norm": sum(r["launches"]["layer_norm"] for r in runs)},
+               "n_batches": sum(r.get("n_batches", 0) for r in runs), "processes": len(runs)}
 
     out_dir = os.path.join(cfg.output_dir, "inference", test_name)
     os.makedirs(out_dir, exist_ok=True)
@@ -188,8 +209,19 @@ def main(argv=None):
     ap.add_argument("--dataset-meta", nargs="+", default=[],
                     help="JSON files of datasets to register first (datasets/meta.py::"
                          "register_meta_file)")
+    add_distributed_args(ap)
     args = ap.parse_args(argv)
     register_meta_files(args.dataset_meta)
+    # the ranks exchange host rows only: gloo unless asked otherwise
+    _, world, args.device = init_from_args(args, backend="gloo")
+    try:
+        return _run(args)
+    finally:
+        if world > 1:
+            shutdown()
+
+
+def _run(args):
 
     from ..bop.models3d import ModelBank
     from ..config import parse_opts, replace_cfg

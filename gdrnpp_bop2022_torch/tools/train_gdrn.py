@@ -1,4 +1,4 @@
-"""GDRN training on one card.
+"""GDRN training, on one card or one process per card.
 
 The port's counterpart of ``tools/train_gdrn.py`` (reference
 core/gdrn_modeling/main_gdrn.py + train_gdrn.sh):
@@ -19,6 +19,17 @@ The model bank is read with ``num_fps = geo_head.num_regions`` and
 ROIs for an RGB-D config.
 ``--eval-only`` serves and scores the newest checkpoint with
 ``tools.test_gdrn.run_eval``. Runs on the card unless ``--device cpu``.
+
+Data parallel, one process per card (``cfg.train.mesh_shape``, the global
+batch ``solver.ims_per_batch`` split over the ranks)::
+
+    torchrun --nproc_per_node 4 -m gdrnpp_bop2022_torch.tools.train_gdrn \
+        --config ycbv_convnext_base
+
+or ``--num-processes N --process-id R --coordinator host:port`` in each
+process; ``--dist-backend gloo`` lets two ranks share one card (with
+``--device cuda:0``). Each rank writes ``stats_rank<R>.json`` under
+``output_dir``: its kernel launches, steps and peak card memory.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import os
 import torch
 
 from ..datasets.meta import register_meta_files
+from ..parallel.distributed import add_distributed_args, barrier, init_from_args, shutdown
 
 
 def records_for(cfg, meta, names):
@@ -98,8 +110,18 @@ def main(argv=None):
     ap.add_argument("--dataset-meta", nargs="+", default=[],
                     help="JSON files of datasets to register first (datasets/meta.py::"
                          "register_meta_file)")
+    add_distributed_args(ap)
     args = ap.parse_args(argv)
     register_meta_files(args.dataset_meta)
+    rank, world, args.device = init_from_args(args)
+    try:
+        return _run(args, rank, world)
+    finally:
+        if world > 1:
+            shutdown()
+
+
+def _run(args, rank: int, world: int):
 
     from ..bop.models3d import ModelBank
     from ..config import parse_opts, replace_cfg
@@ -130,13 +152,35 @@ def main(argv=None):
         return run_eval(cfg, meta, bank, model, device=args.device)
 
     from ..engine.trainer import train_gdrn
+    if rank > 0:        # rank 0 writes the split's index cache first
+        barrier()
     records = records_for(cfg, meta, cfg.datasets.train)
     records2 = records_for(cfg, meta, cfg.datasets.train2) if cfg.datasets.train2 else None
+    if rank == 0 and world > 1:
+        barrier()
     eval_fn = None
-    if cfg.train.eval_period > 0 and cfg.datasets.det_files_test:
+    if rank == 0 and cfg.train.eval_period > 0 and cfg.datasets.det_files_test:
         eval_fn = make_eval_fn(cfg, meta, bank, args.device)
-    return train_gdrn(cfg, records, bank, records2=records2, max_iters=args.max_iters,
-                      resume=args.resume, meta=meta, eval_fn=eval_fn, device=args.device)
+    state = train_gdrn(cfg, records, bank, records2=records2, max_iters=args.max_iters,
+                       resume=args.resume, meta=meta, eval_fn=eval_fn, device=args.device)
+    _write_stats(os.path.join(cfg.output_dir, f"stats_rank{rank}.json"), rank, world, state,
+                 args.device)
+    return state
+
+
+def _write_stats(path: str, rank: int, world: int, state, device) -> None:
+    """This process's kernel launches, steps and peak card memory."""
+    import json
+    from ..ops.layer_norm import layer_norm, layer_norm_backward
+    from ..ops.raster import render_depth_xyz_cuda
+    on_card = torch.device(device).type == "cuda"
+    with open(path, "w") as f:
+        json.dump({"rank": rank, "world": world, "steps": state.step,
+                   "launches": {"layer_norm": layer_norm.launches,
+                                "layer_norm_backward": layer_norm_backward.launches,
+                                "render_depth_xyz": render_depth_xyz_cuda.launches},
+                   "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card
+                   else None}, f)
 
 
 if __name__ == "__main__":

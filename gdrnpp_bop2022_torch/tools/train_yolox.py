@@ -1,4 +1,4 @@
-"""YOLOX detector training on one card.
+"""YOLOX detector training, on one card or one process per card.
 
 The port's counterpart of ``tools/train_yolox.py`` (reference
 det/yolox/tools/main_yolox.py + train_yolox.sh):
@@ -17,6 +17,11 @@ indexed image count (epoch = images // batch_size). Writes
 the result. As in the JAX CLI, no eval function is passed, so neither the
 in-train eval nor precise BN runs from here. Runs on the card unless
 ``--device cpu``.
+
+Data parallel, one process per card (the global batch split over the
+ranks): ``torchrun --nproc_per_node N -m gdrnpp_bop2022_torch.tools.train_yolox
+...``, or ``--num-processes N --process-id R --coordinator host:port`` in
+each process.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+
+from ..parallel.distributed import add_distributed_args, barrier, init_from_args, shutdown
 
 
 def main(argv=None):
@@ -47,7 +54,17 @@ def main(argv=None):
                     help="recompute BN statistics over N clean batches before each "
                          "in-train eval (reference PreciseBN hook)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_distributed_args(ap)
     args = ap.parse_args(argv)
+    rank, world, args.device = init_from_args(args)
+    try:
+        return _run(ap, args, rank, world)
+    finally:
+        if world > 1:
+            shutdown()
+
+
+def _run(ap, args, rank: int, world: int):
 
     from .. import configs
     from ..config import YoloxConfig, parse_opts, replace_cfg
@@ -79,11 +96,16 @@ def main(argv=None):
     num_classes = meta.num_classes if cfg.num_classes == -1 else cfg.num_classes
     out = cfg.output_dir or f"output/yolox/{meta.name}"
     records = []
+    if rank > 0:        # rank 0 writes the splits' index caches first
+        barrier()
     for split in cfg.train_splits:
         records.extend(index_bop_split(os.path.join(args.root, meta.name, split), meta,
                                        cache_path=os.path.join(out, f"index_{split}.pkl")))
+    if rank == 0 and world > 1:
+        barrier()
     det_records = det_records_from_instances(records)
-    print(f"{len(det_records)} training images")
+    if rank == 0:
+        print(f"{len(det_records)} training images")
 
     # the recipe's epochs -> iterations (reference epoch_len)
     epoch_len = max(1, len(det_records) // cfg.batch_size)

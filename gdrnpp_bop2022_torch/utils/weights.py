@@ -12,6 +12,12 @@ is the inverse of ``convert_yolox_checkpoint``.
 ``seeded_state_dict`` draws a full state dict from a numpy seed, at a scale
 where every layer matters (layer scale and out-conv inits of 1e-6..1e-2
 would make most of the network a no-op).
+
+``load_pretrained_backbone`` is ``backbone.pretrained``: the port's copy of
+``gdrnpp_bop2022_tpu/utils/torch_port.py::load_pretrained_backbone`` (timm
+ConvNeXt checkpoints with their wrappers and prefixes, the stem adapted to
+``backbone.in_channels`` by ``adapt_input_conv``, or an ``.npz`` of flax
+paths for any backbone), returning the backbone's state dict.
 """
 
 from __future__ import annotations
@@ -342,6 +348,125 @@ def yolox_state_dict_from_flax(params: dict, batch_stats: dict = None) -> Dict[s
     return {k: torch.from_numpy(np.array(v, np.int64 if v.dtype == np.int64 else np.float32,
                                          order="C"))
             for k, v in out.items()}
+
+
+def strip_prefix(sd: dict, prefix: str) -> dict:
+    """A wrapper's prefix ('_module.' of Lightning, 'module.' of DDP,
+    'backbone.' of a whole GDRN) removed from the keys that carry it."""
+    return {k[len(prefix):] if k.startswith(prefix) else k: v for k, v in sd.items()}
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ``.pth`` as a flat state dict on the CPU: a raw state
+    dict, or one under {"model": ...} and then {"state_dict": ...}, with
+    the '_module.' and 'module.' prefixes stripped."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and isinstance(ckpt.get("model"), dict):
+        ckpt = ckpt["model"]
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    sd = {k: torch.as_tensor(v) for k, v in ckpt.items()}
+    for prefix in ("_module.", "module."):
+        sd = strip_prefix(sd, prefix)
+    return sd
+
+
+def adapt_input_conv(w: torch.Tensor, in_chans: int) -> torch.Tensor:
+    """A conv weight (O, I, kh, kw) adapted to ``in_chans`` input channels
+    as timm's adapt_input_conv does: at 1 channel the sum over the input
+    channels; otherwise the kernel tiled along them, truncated to
+    ``in_chans`` and scaled by I / in_chans, so activations keep their
+    scale (the RGB-D 6-channel variants reuse RGB weights this way). In
+    fp32 through numpy, as the JAX package computes it."""
+    w_np = w.detach().cpu().numpy().astype(np.float32)
+    I = w_np.shape[1]
+    if in_chans == I:
+        return w
+    if in_chans == 1:
+        return torch.from_numpy(w_np.sum(axis=1, keepdims=True))
+    reps = -(-in_chans // I)
+    return torch.from_numpy(np.ascontiguousarray(
+        np.tile(w_np, (1, reps, 1, 1))[:, :in_chans] * (I / in_chans)))
+
+
+class _Seen(dict):
+    """A flax subtree that records the paths read from it, so that a
+    checkpoint path no part of the model reads is found."""
+
+    def __init__(self, tree: dict, path: str, seen: set):
+        super().__init__({k: _Seen(v, f"{path}{k}/", seen) if isinstance(v, dict) else v
+                          for k, v in tree.items()})
+        self._path, self._seen = path, seen
+
+    def __getitem__(self, k):
+        self._seen.add(self._path + k)
+        return super().__getitem__(k)
+
+    def items(self):
+        self._seen.update(self._path + k for k in self.keys())
+        return super().items()
+
+
+def _backbone_from_npz(path: str, name: str) -> Dict[str, torch.Tensor]:
+    """An ``.npz`` of flat '/'-joined flax paths of the backbone subtree
+    -> the port's backbone state dict, through ``_backbone``. A flax path
+    the backbone does not read raises KeyError, as the JAX loader's does."""
+    flat = dict(np.load(path))
+    if not flat:
+        raise ValueError(f"{path}: empty npz")
+    tree: dict = {}
+    for k, v in flat.items():
+        node = tree
+        *parents, leaf = k.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    seen: set = set()
+    try:
+        sd = _backbone(_Seen(tree, "", seen), name)
+    except KeyError as e:
+        raise KeyError(f"{path} lacks the backbone's flax path {e}") from None
+    unread = sorted(set(flat) - seen)
+    if unread:
+        raise KeyError(f"{path}: {unread[:3]} are not paths of a {name} backbone")
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+
+
+def load_pretrained_backbone(path: str, backbone: torch.nn.Module, name: str,
+                             in_channels: int = 3) -> Dict[str, torch.Tensor]:
+    """``backbone.pretrained`` at train start: the state dict of ``backbone``
+    (a ``name`` backbone with ``in_channels`` input channels) from
+
+      * a timm ConvNeXt torch checkpoint (.pth / .pt / .bin / .ckpt): the
+        wrappers and prefixes of ``load_torch_checkpoint``, then 'module.'
+        and 'backbone.' stripped, the stem conv adapted to ``in_channels``
+        by ``adapt_input_conv`` when that is not 3; or
+      * an ``.npz`` of flat '/'-joined flax paths of the backbone subtree
+        (any backbone), through the flax -> torch mapping.
+
+    A torch checkpoint of another backbone raises NotImplementedError, as
+    the JAX loader does. Every parameter and buffer of ``backbone`` must
+    come from the file, at its shape: a missing one raises KeyError, a
+    shape ValueError; nothing is skipped."""
+    if path.endswith(".npz"):
+        sd = _backbone_from_npz(path, name)
+    else:
+        if name not in _CONVNEXT_DEPTHS:
+            raise NotImplementedError(
+                f"backbone.pretrained torch conversion is implemented for convnext_* "
+                f"(timm layout); got {name!r}: convert offline and pass a .npz instead")
+        sd = strip_prefix(strip_prefix(load_torch_checkpoint(path), "module."), "backbone.")
+        if in_channels != 3 and "stem.0.weight" in sd:
+            sd["stem.0.weight"] = adapt_input_conv(sd["stem.0.weight"], in_channels)
+    want = backbone.state_dict()
+    missing = [k for k in want if k not in sd]
+    if missing:
+        raise KeyError(f"pretrained backbone {path} lacks {missing[:3]} ...")
+    for k, v in want.items():
+        if tuple(sd[k].shape) != tuple(v.shape):
+            raise ValueError(f"{k}: checkpoint shape {tuple(sd[k].shape)} != model "
+                             f"{tuple(v.shape)}")
+    return {k: sd[k].to(v.dtype) for k, v in want.items()}
 
 
 def seeded_state_dict(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor]:

@@ -55,5 +55,5 @@ def test_port_imports_no_jax():
               "ops.ransac_voting", "utils.mask_rle", "utils.fake_data", "tools.export_model",
               "tools.strip_ckpt", "tools.convert_dets", "tools.merge_so_results",
               "tools.process_results_time", "tools.run_bop_sweep", "tools.compute_mask_miou",
-              "tools.vis_dataset"):
+              "tools.vis_dataset", "parallel", "parallel.mesh", "parallel.distributed"):
         assert f"gdrnpp_bop2022_torch.{m}" in out["modules"], m
