@@ -28,7 +28,8 @@ forward and the auxiliary ops; and checks the models on the card against
 the same models on the CPU in fp32. It prints its wall time. Phases:
 
   1. device: name, versions, power limit; build both kernels (one nvcc
-     each, started together);
+     each, started together); registers and spills of every instantiation of
+     B1's backward as ptxas built them (-Xptxas -v; a spill fails);
   2. B1 (LayerNorm) vs plain at the shapes the main paths give it, on both
      of its paths (16-byte vectors; one element per access for C = 100 and
      an input offset by one element), with hot (device time of back-to-back
@@ -64,9 +65,12 @@ the same models on the CPU in fp32. It prints its wall time. Phases:
   9. card vs CPU parity of the RGB and the RGB-D flagship in fp32 (run
      last, after phase 13);
  10. training: B1's backward kernel vs its plain version (autograd through
-     layer_norm_ref) at the four ConvNeXt-base shapes at batch 48 and on the
-     scalar path, with hot / cold times beside the plain version, aten's
-     native_layer_norm_backward, a copy_ of the same bytes and the bound; a
+     layer_norm_ref) at the four ConvNeXt-base shapes at batch 48, at its
+     tiles' edges (1 and 3 rows, a ragged last tile), with mean and rstd as
+     views at an odd row and 4 rows in, and on the scalar path, 20 calls in a
+     row bit-equal; per width and per step, hot / cold times and the share of
+     the bound, its two kernels apart, beside the plain version, aten's
+     native_layer_norm_backward and a copy_ of the same bytes; a
      synthetic train split (RGB, analytic depth, mask/ and mask_visib/ PNGs
      from the analytic hits, scene_gt*.json), TRAIN_BG_IMAGES backgrounds,
      and the bank decimated to 1024 faces with 64 FPS keypoints; B2's
@@ -224,14 +228,20 @@ RASTER_OPS_PER_TEST = 18
 RASTER_TILE = (32, 8)     # csrc/raster.cu's kTileW, kTileH
 # the kernels each wrapper call launches once (names as the profiler shows them)
 LN_FWD_KERNELS = ("layer_norm_rows",)
-LN_BWD_KERNELS = ("layer_norm_bwd_rows", "layer_norm_bwd_reduce")
+LN_BWD_KERNELS = ("layer_norm_bwd_tiles", "layer_norm_bwd_reduce")
 B2_KERNELS = ("pack_faces_kernel", "raster_kernel")
 H100_FP32_FLOPS = 67e12   # dense fp32 outside the tensor cores (data sheet)
 H100_BYTES_PER_S = 3.35e12
 # cold timing: a 256 MB write evicts the 50 MB L2 before each call; the card
-# then spins ~0.5 ms so the call is queued before its start event
+# then spins ~0.5 ms so the call is queued before its start event; a call
+# that the host had not queued when the spin ended is timed again behind a
+# spin twice as long, at most this many times
 FLUSH_BYTES = 256 << 20
 SPIN_CYCLES = 1_000_000
+COLD_SPIN_DOUBLINGS = 6
+# traces kernel_ms takes where one kept no record of the kernels it times
+# (seen once at 9 us calls on an H100)
+PROFILE_TRIES = 3
 # card vs CPU, fp32 flagship: 40 blocks of convs whose algorithms differ
 # (cuDNN vs oneDNN) and sum in another order
 PARITY_ROT_TOL = 1e-3
@@ -275,6 +285,13 @@ OPT_STEPS = 12            # two lookahead syncs (k = 6) per timing
 # within 1e-4 of the sum of the absolute values of their terms (rows are
 # summed in another order)
 LN_BWD_REL_TOL = 1e-4
+# the vector backward's edges (rows, C): one tile of fewer rows than the
+# ring has stages, and a last tile cut short; mean / rstd views that start
+# this many rows into their buffers (1: misaligned, the scalar path; 4: the
+# vector path); calls in a row that must give the same bits
+LN_BWD_EDGES = ((1, 1024), (3, 1024), (TRAIN_BATCH * 256 + 5, 512))
+LN_BWD_STATS_OFFSETS = (1, 4)
+LN_BWD_REPEAT = 20
 # card vs CPU, one fp32 step of the tiny config (tests/test_model_train_step.py
 # sizes, 21 classes, no warmup): losses relative to max(|loss|, 1); grads
 # and params after the step relative to each tensor's largest magnitude
@@ -477,19 +494,34 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 def cold_ms(fn, reps=10):
     """Mean device time of single calls of fn() with the L2 cache flushed
-    before each, by CUDA events around each call."""
+    before each, by CUDA events around each call. Each call is queued behind
+    a spin on the card, so that the events time the card alone. Where the
+    spin had ended before the host had queued the call's end event (an
+    event recorded after the spin had completed by then), the events may
+    also time the host's delay: that call is timed again behind a spin twice
+    as long, up to COLD_SPIN_DOUBLINGS times, and the redo is logged."""
     flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
     fn()
     total = 0.0
     for _ in range(reps):
-        flush.fill_(1.0)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
+        for doubling in range(COLD_SPIN_DOUBLINGS + 1):
+            flush.fill_(1.0)
+            torch.cuda._sleep(SPIN_CYCLES << doubling)
+            spun = torch.cuda.Event()
+            spun.record()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            queued = not spun.query()
+            end.synchronize()
+            if queued:
+                break
+            log(f"cold_ms: the spin of {SPIN_CYCLES << doubling} cycles ended before the call "
+                f"was queued ({start.elapsed_time(end):.4f} ms); timing it again")
+        check(queued, f"cold_ms: a call was not queued within a spin of "
+                      f"{SPIN_CYCLES << COLD_SPIN_DOUBLINGS} cycles")
         total += start.elapsed_time(end)
     del flush
     return total / reps
@@ -505,15 +537,9 @@ def device_ms(fn, kernels=None):
     return sum(ms.values()) if all(v is not None for v in ms.values()) else None
 
 
-def kernel_ms(fn, names, iters=20, per_call=None):
-    """Device time per call of fn() in the kernels whose names contain each
-    of `names`, by torch.profiler over `iters` back-to-back calls (None where
-    no such kernel shows). per_call[name], where given, is the number of
-    such kernels a call launches: the time per call is then the mean of the
-    records the trace kept times per_call, since the profiler can drop
-    kernel records (one run on an H100 kept 7 of 20 calls' records), and
-    a short trace is logged. Name only kernels that a call launches itself,
-    never the copies it may make."""
+def _cuda_records(fn, iters):
+    """torch.profiler's CUDA entries (key_averages, one per kernel name) over
+    `iters` back-to-back calls of fn(), after one call to warm up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -522,19 +548,40 @@ def kernel_ms(fn, names, iters=20, per_call=None):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out = {}
-    for n in names:
-        ev = [e for e in prof.key_averages() if n in e.key and e.device_type == DeviceType.CUDA]
-        us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
-                 for e in ev)
-        out[n] = us / iters / 1e3 if us else None
-        k = (per_call or {}).get(n)
-        count = sum(e.count for e in ev)
-        if k and us:
-            out[n] = us / (count / k) / 1e3
-            if count != iters * k:
-                log(f"profiler kept {count} of {iters * k} kernel records of {n or 'fn'!r}; "
-                    f"time per call from their mean")
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def _device_us(e):
+    return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+
+
+def kernel_ms(fn, names, iters=20, per_call=None):
+    """Device time per call of fn() in the kernels whose names contain each
+    of `names`, by torch.profiler over `iters` back-to-back calls (None where
+    no such kernel shows). per_call[name], where given, is the number of
+    such kernels a call launches: the time per call is then the mean of the
+    records the trace kept times per_call, since the profiler can drop
+    kernel records (one run on an H100 kept 7 of 20 calls' records), and
+    a short trace is logged. A trace that kept no record of any of `names`
+    is taken again, up to PROFILE_TRIES traces. Name only kernels that a
+    call launches itself, never the copies it may make."""
+    for _ in range(PROFILE_TRIES):
+        records = _cuda_records(fn, iters)
+        out = {}
+        for n in names:
+            ev = [e for e in records if n in e.key]
+            us = sum(_device_us(e) for e in ev)
+            out[n] = us / iters / 1e3 if us else None
+            k = (per_call or {}).get(n)
+            count = sum(e.count for e in ev)
+            if k and us:
+                out[n] = us / (count / k) / 1e3
+                if count != iters * k:
+                    log(f"profiler kept {count} of {iters * k} kernel records of "
+                        f"{n or 'fn'!r}; time per call from their mean")
+        if any(v is not None for v in out.values()):
+            break
+        log(f"the profiler kept no kernel record of {names}; tracing again")
     return out
 
 
@@ -563,7 +610,7 @@ def profile_calls(fn, n):
     return wall_ms, sum(ms for _, ms, _ in ev), sum(c for *_, c in ev), ev
 
 
-def phase_device():
+def phase_device(ptxas=True):
     name = torch.cuda.get_device_name(0)
     log(f"[1/18] device: {name} x{torch.cuda.device_count()}  torch "
         f"{torch.__version__}  CUDA {torch.version.cuda}  python "
@@ -581,7 +628,43 @@ def phase_device():
         load_kernel_library(lib)
     log(f"[1/18] built csrc/layer_norm.cu and csrc/raster.cu for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s")
+    if ptxas:
+        ptxas_backward()
     return name, card
+
+
+def _demangle(names):
+    """C++ names of mangled symbols, through c++filt (or CUDA's cu++filt)
+    where the machine has one, else as they are."""
+    import shutil
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if tool is None:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
+PTXAS_BACKWARD = {}      # B1's backward instantiations as ptxas built them (phase 1)
+
+
+def ptxas_backward():
+    """B1's backward kernels as ptxas built them (-Xptxas -v in the build
+    log): registers, stack and spills of every instantiation; fails on a
+    spill or if the log names no backward kernel."""
+    from gdrnpp_bop2022_torch.utils.cuda_build import build_log, ptxas_usage
+    usage = {k: v for k, v in ptxas_usage(build_log("layer_norm")).items()
+             if "layer_norm_bwd" in k}
+    check(usage, "the build log of csrc/layer_norm.cu names no backward kernel (-Xptxas -v)")
+    for full, (k, v) in zip(_demangle(list(usage)), usage.items()):
+        name = full.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
+        log(f"[1/18] ptxas {name}: {v.get('registers')} registers, stack "
+            f"{v.get('stack')} B, spill stores {v.get('spill_stores')} B, spill loads "
+            f"{v.get('spill_loads')} B")
+        check(v.get("spill_stores") == 0 and v.get("spill_loads") == 0,
+              f"ptxas spilled in {full}: {v}")
+        PTXAS_BACKWARD[name] = v
+    return usage
 
 
 # ---------------------------------------------------------------------------
@@ -1690,23 +1773,39 @@ def phase_score(card, scene, bank, tmp):
 # B1 backward and GDRN training
 # ---------------------------------------------------------------------------
 
-def _ln_bwd_case(rows, C, dtype, g, offset=0):
+def _ln_bwd_case(rows, C, dtype, g, offset=0, stats_offset=None):
     """B1's backward (gdrnpp::layer_norm's autograd, as training calls it) vs its plain
     version (autograd through layer_norm_ref) on x, dy (rows, C) drawn from
-    g; returns (max abs err of dx, of dweight / dbias relative to the sum of
-    the absolute values of their terms, ok)."""
-    from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm, layer_norm_backward_ref
+    g; with stats_offset, layer_norm_backward called with the forward's mean
+    and rstd copied into views that start that many rows into their
+    buffers. Returns (max abs err of dx, of dweight / dbias relative to the
+    sum of the absolute values of their terms, ok, vector path taken)."""
+    from gdrnpp_bop2022_torch.ops.layer_norm import (_forward_cuda, _vector_path, layer_norm,
+                                                     layer_norm_backward,
+                                                     layer_norm_backward_ref)
     buf = (torch.randn(rows * C + offset, device="cuda", generator=g) * 2 + 0.5).to(dtype)
     dbuf = torch.randn(rows * C + offset, device="cuda", generator=g).to(dtype)
     x, dy = buf[offset:].view(rows, C), dbuf[offset:].view(rows, C)
     w = (1 + 0.1 * torch.randn(C, device="cuda", generator=g)).requires_grad_(True)
     b = (0.1 * torch.randn(C, device="cuda", generator=g)).requires_grad_(True)
-    xr = x.detach().clone().requires_grad_(True)
-    layer_norm(xr, w, b).backward(dy)
+    if stats_offset is None:
+        xr = x.detach().clone().requires_grad_(True)
+        layer_norm(xr, w, b).backward(dy)
+        dx, dw, db = xr.grad, w.grad, b.grad
+        vec = _vector_path(x, dy, w, x)
+    else:
+        _, mean, rstd = _forward_cuda(x, w.detach(), b.detach(), 1e-6, with_stats=True)
+        views = []
+        for st in (mean, rstd):
+            sbuf = torch.full((rows + stats_offset,), float("nan"), device="cuda")
+            sbuf[stats_offset:] = st
+            views.append(sbuf[stats_offset:])
+        dx, dw, db = layer_norm_backward(dy, x, w.detach(), *views)
+        vec = _vector_path(x, dy, w, x, *views)
     dx_ref, dw_ref, db_ref = layer_norm_backward_ref(dy, x, w.detach())
     torch.cuda.synchronize()
     ref = dx_ref.float()
-    err = (xr.grad.float() - ref).abs()
+    err = (dx.float() - ref).abs()
     if dtype == torch.float32:
         ok = bool((err <= LN_TOL_F32).all())
     else:
@@ -1716,24 +1815,52 @@ def _ln_bwd_case(rows, C, dtype, g, offset=0):
     xhat = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(
         xf.var(-1, unbiased=False, keepdim=True) + 1e-6)
     rel = 0.0
-    for got, want, terms in ((w.grad, dw_ref, (dy.float() * xhat).abs().sum(0)),
-                             (b.grad, db_ref, dy.float().abs().sum(0))):
+    for got, want, terms in ((dw, dw_ref, (dy.float() * xhat).abs().sum(0)),
+                             (db, db_ref, dy.float().abs().sum(0))):
         rel = max(rel, float(((got - want).abs() / (terms + 1e-12)).max()))
-    return float(err.max()), rel, ok and rel <= LN_BWD_REL_TOL
+    return float(err.max()), rel, ok and rel <= LN_BWD_REL_TOL, vec
+
+
+def bwd_device_ms(fn):
+    """Device time per call of fn(), one call of B1's backward, over the
+    kernels whose names contain "layer_norm_bwd" (this design's and earlier
+    ones' alike): of each such kernel, by its exact name, the mean of the
+    records the profiler kept, times the launches of it that a call makes
+    (the wrapper's reduce_launches for the reduction, its launches for the
+    rows kernel), summed. A trace that kept no record of either is taken
+    again, up to PROFILE_TRIES traces."""
+    from gdrnpp_bop2022_torch.ops.layer_norm import layer_norm_backward as lb
+    before = (lb.launches, lb.reduce_launches)
+    fn()
+    per_call = {True: lb.reduce_launches - before[1], False: lb.launches - before[0]}
+    for _ in range(PROFILE_TRIES):
+        records = [e for e in _cuda_records(fn, 20) if "layer_norm_bwd" in e.key]
+        kinds = [("reduce" in e.key) for e in records]
+        if sorted(kinds) == [False, True]:
+            break
+        log(f"the profiler kept records of {[e.key for e in records]} of B1's backward, "
+            f"not one rows kernel and one reduction; tracing again")
+    check(sorted(kinds) == [False, True],
+          f"B1 backward: no trace kept one rows kernel and one reduction: "
+          f"{[e.key for e in records]}")
+    return sum(_device_us(e) / e.count * per_call[k] for e, k in zip(records, kinds)) / 1e3
 
 
 def ln_backward_times(card):
     """B1's backward at the training shapes (batch TRAIN_BATCH, bf16, 40
-    LayerNorms): hot (profiler device time) and cold ms per step, the plain
-    version's hot time, aten's native_layer_norm_backward (what autograd
-    through F.layer_norm runs) hot, a copy_ of the same bytes cold, and the
-    bytes bound; the forward with statistics cold (events: the profiler lost
-    its events once at these 5-40 us calls), and its bound."""
+    LayerNorms): per width and per step, hot (profiler device time of the
+    layer_norm_bwd* kernels) and cold ms beside the bytes bound, the rows
+    kernel and the reduction apart (hot), the plain version's hot time,
+    aten's native_layer_norm_backward (what autograd through F.layer_norm
+    runs) hot, a copy_ of the same bytes cold; the forward with statistics
+    cold (events: the profiler lost its events once at these 5-40 us calls),
+    and its bound."""
     from gdrnpp_bop2022_torch.ops.layer_norm import (_forward_cuda, layer_norm_backward,
                                                      layer_norm_backward_ref)
     g = torch.Generator(device="cuda").manual_seed(SEED + 12)
     t = dict.fromkeys(("ms", "cold_ms", "plain_ms", "library_ms", "copy_cold_ms",
                        "fwd_stats_cold_ms"), 0.0)
+    t["shapes"] = []
     n_bytes = fwd_bytes = 0
     for r, C, n in LN_SHAPES:
         rows = TRAIN_BATCH * r
@@ -1743,9 +1870,10 @@ def ln_backward_times(card):
         b = 0.1 * torch.randn(C, device="cuda", generator=g)
         _, mean, rstd = _forward_cuda(x, w, b, 1e-6, with_stats=True)
         fs = cold_ms(lambda: _forward_cuda(x, w, b, 1e-6, with_stats=True))
-        k = device_ms(lambda: layer_norm_backward(dy, x, w, mean, rstd),
-                      kernels=LN_BWD_KERNELS)
-        kc = cold_ms(lambda: layer_norm_backward(dy, x, w, mean, rstd))
+        bwd = lambda: layer_norm_backward(dy, x, w, mean, rstd)      # noqa: E731
+        k = bwd_device_ms(bwd)
+        kc = cold_ms(bwd)
+        split = kernel_ms(bwd, LN_BWD_KERNELS, per_call=dict.fromkeys(LN_BWD_KERNELS, 1))
         p = device_ms(lambda: layer_norm_backward_ref(dy, x, w))
         wb, bb = w.bfloat16(), b.bfloat16()
         _, m_l, r_l = torch.ops.aten.native_layer_norm(x, [C], wb, bb, 1e-6)
@@ -1756,47 +1884,81 @@ def ln_backward_times(card):
         cp = cold_ms(lambda: dst.copy_(src))
         for key, v in zip(t, (k, kc, p, lib, cp, fs)):
             t[key] += n * v
-        n_bytes += n * (3 * x.numel() * 2 + 2 * rows * 4 + 3 * C * 4)
+        call_bytes = 3 * x.numel() * 2 + 2 * rows * 4 + 3 * C * 4
+        bound = call_bytes / H100_BYTES_PER_S * 1e3
+        n_bytes += n * call_bytes
         fwd_bytes += n * (2 * x.numel() * 2 + 2 * rows * 4 + 2 * C * 4)
-        log(f"[10/18] B1 backward rows={rows} C={C} bfloat16 x{n}: kernel hot {k:.4f} ms "
-            f"cold {kc:.4f} ms, plain {p:.4f} ms, native_layer_norm_backward hot {lib:.4f} "
-            f"ms, copy_ of the same bytes cold {cp:.4f} ms; forward with statistics cold "
-            f"{fs:.4f} ms")
+        t["shapes"].append({"rows": rows, "C": C, "calls": n, "ms": k, "cold_ms": kc,
+                            "bound_ms": bound, "kernels_ms": split, "copy_cold_ms": cp,
+                            "library_ms": lib, "plain_ms": p})
+        split_txt = ", ".join(f"{kn} {v:.4f}" for kn, v in split.items() if v)
+        log(f"[10/18] B1 backward rows={rows} C={C} bfloat16 x{n}, a call: kernel hot {k:.4f} "
+            f"ms, cold {kc:.4f} ms, bound {bound:.4f} ms ({100 * bound / kc:.1f}% of it cold, "
+            f"{100 * bound / k:.1f}% hot); hot apart: {split_txt or 'not measured'} ms; copy_ "
+            f"of the same bytes cold {cp:.4f} ms; native_layer_norm_backward hot {lib:.4f} "
+            f"ms; plain {p:.4f} ms; forward with statistics cold {fs:.4f} ms  [{card}]")
     t["bound_ms"] = n_bytes / H100_BYTES_PER_S * 1e3
     t["fwd_stats_bound_ms"] = fwd_bytes / H100_BYTES_PER_S * 1e3
     log(f"[10/18] B1 backward per training step at batch {TRAIN_BATCH} (40 LayerNorms, "
-        f"bf16): kernel hot {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms "
-        f"({100 * t['bound_ms'] / t['cold_ms']:.1f}% of the bound cold); plain "
-        f"{t['plain_ms']:.4f} ms; native_layer_norm_backward hot {t['library_ms']:.4f} ms; "
-        f"copy_ of the same bytes cold {t['copy_cold_ms']:.4f} ms; bound {t['bound_ms']:.4f} "
-        f"ms ({n_bytes / 1e9:.3f} GB at 3.35 TB/s). Forward with statistics cold "
-        f"{t['fwd_stats_cold_ms']:.4f} ms, bound {t['fwd_stats_bound_ms']:.4f} ms "
-        f"({fwd_bytes / 1e9:.3f} GB)  [{card}]")
+        f"bf16): kernel hot {t['ms']:.4f} ms ({100 * t['bound_ms'] / t['ms']:.1f}% of the "
+        f"bound), cold {t['cold_ms']:.4f} ms ({100 * t['bound_ms'] / t['cold_ms']:.1f}% of the "
+        f"bound cold); plain {t['plain_ms']:.4f} ms; native_layer_norm_backward hot "
+        f"{t['library_ms']:.4f} ms; copy_ of the same bytes cold {t['copy_cold_ms']:.4f} ms; "
+        f"bound {t['bound_ms']:.4f} ms ({n_bytes / 1e9:.3f} GB at 3.35 TB/s). Forward with "
+        f"statistics cold {t['fwd_stats_cold_ms']:.4f} ms, bound {t['fwd_stats_bound_ms']:.4f} "
+        f"ms ({fwd_bytes / 1e9:.3f} GB)  [{card}]")
     return t
 
 
+def _ln_bwd_repeat(g, calls=LN_BWD_REPEAT):
+    """`calls` backward calls in a row at (TRAIN_BATCH x 256, 512) bf16 on the
+    same inputs, each with its own scratch: True if every call gives the
+    first call's bits."""
+    from gdrnpp_bop2022_torch.ops.layer_norm import _forward_cuda, layer_norm_backward
+    rows, C = TRAIN_BATCH * 256, 512
+    x = (torch.randn(rows, C, device="cuda", generator=g) * 2 + 0.5).to(torch.bfloat16)
+    dy = torch.randn(rows, C, device="cuda", generator=g).to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn(C, device="cuda", generator=g)
+    _, mean, rstd = _forward_cuda(x, w, torch.zeros_like(w), 1e-6, with_stats=True)
+    first = layer_norm_backward(dy, x, w, mean, rstd)
+    same = True
+    for _ in range(calls - 1):
+        out = layer_norm_backward(dy, x, w, mean, rstd)
+        same &= all(torch.equal(a, b) for a, b in zip(out, first))
+    torch.cuda.synchronize()
+    return same
+
+
 def phase_ln_backward(card):
-    from gdrnpp_bop2022_torch.ops.layer_norm import _vector_path
+    t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(SEED + 13)
     worst = 0.0
-    cases = [(TRAIN_BATCH * r, C, dt, 0) for r, C, _ in LN_SHAPES
-             for dt in (torch.bfloat16, torch.float32)]
-    cases += [(r, C, dt, off) for r, C, off in ((4099, 100, 0), (TRAIN_BATCH * 4096, 128, 1),
-                                               (777, 1024, 1))
-              for dt in (torch.bfloat16, torch.float32)]
-    for rows, C, dt, off in cases:
-        err, rel, ok = _ln_bwd_case(rows, C, dt, g, off)
-        x = torch.empty(rows * C + off, dtype=dt, device="cuda")[off:].view(rows, C)
-        vec = _vector_path(x, x, torch.empty(C, device="cuda"))
+    both = (torch.bfloat16, torch.float32)
+    cases = [(TRAIN_BATCH * r, C, dt, 0, None) for r, C, _ in LN_SHAPES for dt in both]
+    # the vector backward's edges: a tile of 1 or 3 rows, a ragged last tile
+    cases += [(r, C, dt, 0, None) for r, C in LN_BWD_EDGES for dt in both]
+    # mean and rstd as views at an odd row (scalar path) and 4 rows in (vector)
+    cases += [(TRAIN_BATCH * 256 + 5, 512, torch.bfloat16, 0, so) for so in LN_BWD_STATS_OFFSETS]
+    # the scalar path: C = 100 in bf16, inputs offset by one element
+    cases += [(r, C, dt, off, None) for r, C, off in ((4099, 100, 0), (TRAIN_BATCH * 4096, 128, 1),
+                                                      (777, 1024, 1)) for dt in both]
+    for rows, C, dt, off, so in cases:
+        err, rel, ok, vec = _ln_bwd_case(rows, C, dt, g, off, so)
         worst = max(worst, err)
-        log(f"[10/18] B1 backward rows={rows} C={C} {str(dt)[6:]} offset={off} "
-            f"{'vector' if vec else 'scalar'} path: dx max_abs_err={err:.3g}, dweight/dbias "
-            f"max err / sum|terms| = {rel:.3g}")
+        log(f"[10/18] B1 backward rows={rows} C={C} {str(dt)[6:]} offset={off}"
+            f"{'' if so is None else f' stats offset={so}'} {'vector' if vec else 'scalar'} "
+            f"path: dx max_abs_err={err:.3g}, dweight/dbias max err / sum|terms| = {rel:.3g}")
         check(ok, f"B1 backward disagrees with its plain version at rows={rows} C={C} {dt} "
-                  f"offset {off}: dx err {err}, dweight/dbias rel {rel}")
+                  f"offset {off} stats offset {so}: dx err {err}, dweight/dbias rel {rel}")
+        check(so is None or vec == (so % 4 == 0),
+              f"B1 backward: mean / rstd {so} rows in took the wrong path")
+    check(_ln_bwd_repeat(g), f"B1 backward: {LN_BWD_REPEAT} calls in a row gave different bits")
+    log(f"[10/18] B1 backward: {LN_BWD_REPEAT} calls in a row at ({TRAIN_BATCH * 256}, 512) "
+        f"bf16 gave the same bits")
     t = ln_backward_times(card)
     t["max_abs_err"] = worst
     t["bound_by"] = "bytes"
+    log(f"[10/18] B1 backward checked and timed in {time.perf_counter() - t0:.1f} s  [{card}]")
     return t
 
 
@@ -2305,7 +2467,7 @@ def phase_train_rgbd(card, ctx):
     g = torch.Generator(device="cuda").manual_seed(SEED + 41)
     worst = 0.0
     for r, C, _ in LN_SHAPES:
-        err, rel, ok = _ln_bwd_case(TRAIN_BATCH * r, C, torch.bfloat16, g)
+        err, rel, ok, _ = _ln_bwd_case(TRAIN_BATCH * r, C, torch.bfloat16, g)
         check(ok, f"B1 backward at ({TRAIN_BATCH * r}, {C}) bf16: dx err {err}, rel {rel}")
         worst = max(worst, err)
     log(f"[11/18] B1 backward vs plain at the dual stream's shapes (both backbones: "
@@ -4180,7 +4342,7 @@ def timing_only(root):
     from gdrnpp_bop2022_torch.datasets.meta import get_meta
     pkg = os.path.dirname(os.path.abspath(gdrnpp_bop2022_torch.__file__))
     log(f"timing {pkg}")
-    _, card = phase_device()
+    _, card = phase_device(ptxas=False)     # an earlier tree keeps no build log
     ln = ln_times(card)
     with tempfile.TemporaryDirectory() as tmp:
         # phase 3's flagship: the scene's first draw is the models' axes
@@ -4296,7 +4458,8 @@ def main():
          "plain_ms": lnb["plain_ms"], "bound_ms": lnb["bound_ms"], "bound_by": lnb["bound_by"],
          "library_ms": lnb["library_ms"], "copy_cold_ms": lnb["copy_cold_ms"],
          "fwd_stats_cold_ms": lnb["fwd_stats_cold_ms"],
-         "fwd_stats_bound_ms": lnb["fwd_stats_bound_ms"],
+         "fwd_stats_bound_ms": lnb["fwd_stats_bound_ms"], "per_width": lnb["shapes"],
+         "ptxas": PTXAS_BACKWARD,
          "launches_by_path": {"train": train["launches"]["bwd"],
                               "train_rgbd": rgbd["launches"]["bwd"]}},
         {"name": "render_depth_xyz", "route": "cuda",

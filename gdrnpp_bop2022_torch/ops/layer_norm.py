@@ -24,11 +24,30 @@ calls it again when it is loaded (import this module first):
     gradient to take, the forward writes no statistics (``mean`` and
     ``rstd`` come back empty).
 
+The backward on the card is bound by the bytes it moves (x and dy read,
+dx written), and a training step's 40 calls take 5.6-45 us each at that
+bound, so what a call costs besides its bytes matters as much. On the
+vector path (every main-path call) it is one design: a persistent grid of
+``bwd_scratch_rows(...)`` blocks (two per SM where a row is at most 1 KB,
+else one; never more than the call has tiles) in which a producer warp
+keeps a two-stage ring of row tiles in shared memory filled with bulk
+copies while eight warps compute dx from it; each block keeps its dweight /
+dbias sums in registers across its tiles and writes one (C,) row per
+output into an fp32 scratch that this wrapper allocates for the call
+(``2 x blocks x C`` floats, 132-264 rows on an H100); a second launch sums
+those rows in a fixed block order, so two runs give the same bits. The SM
+count behind the plan is read once per device. The scalar path (a C whose
+row is not whole 16-byte vectors, or a misaligned pointer) keeps the first
+design: an occupancy-sized grid with a 1024-row scratch.
+
 ``layer_norm.launches`` counts forward kernel launches;
-``layer_norm_backward.launches`` counts backward kernel launches and
-``layer_norm_backward.reduce_launches`` the launches of its fixed-order
-reduction of dweight/dbias; ``layer_norm_backward.dy_copies`` counts
-incoming gradients that were not contiguous (rows, C) and had to be copied.
+``layer_norm_backward.launches`` counts launches of the backward's rows
+kernel (``layer_norm_bwd_tiles`` on the vector path, ``layer_norm_bwd_rows``
+on the scalar path) and ``layer_norm_backward.reduce_launches`` the
+launches of its fixed-order reduction of dweight/dbias over the rows
+kernel's blocks (``layer_norm_bwd_reduce``), one each a call;
+``layer_norm_backward.dy_copies`` counts incoming gradients that were not
+contiguous (rows, C) and had to be copied.
 """
 
 from __future__ import annotations
@@ -39,9 +58,10 @@ import torch
 import torch.nn.functional as F
 
 MAX_CHANNELS = 1024
-MAX_BWD_BLOCKS = 1024          # csrc/layer_norm.cu kMaxBwdBlocks
+MAX_BWD_BLOCKS = 1024          # csrc/layer_norm.cu kMaxBwdBlocks (the scalar path)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = None
+_sm_counts = {}
 
 
 def layer_norm_ref(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -73,7 +93,7 @@ def _kernels():
         fwd.argtypes = [p, p, p, p, p, p, i, i, ctypes.c_float, i, i, p]
         fwd.restype = i
         bwd = lib.gdrn_layer_norm_bwd
-        bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+        bwd.argtypes = [p, p, p, p, p, p, p, i, p, p, i, i, i, i, p]
         bwd.restype = i
         _fns = (fwd, bwd)
     return _fns
@@ -83,10 +103,32 @@ def _vector_path(*tensors) -> bool:
     """True where the kernel can move 16 bytes per access: a row of C
     values is a whole number of 16-byte vectors (C % 8 in bf16, C % 4 in
     fp32; C and the element size from the first tensor) and every tensor
-    starts on a 16-byte boundary."""
+    starts on a 16-byte boundary (for the backward also mean and rstd, which
+    its bulk copies read in 16-byte groups)."""
     x = tensors[0]
     return ((x.shape[-1] * x.element_size()) % 16 == 0
             and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def bwd_scratch_rows(rows: int, C: int, element_size: int, vector: bool, sms: int) -> int:
+    """Rows of the backward's fp32 scratch per output for (rows, C) of
+    elements of ``element_size`` bytes on a card of ``sms`` SMs: on the
+    vector path the persistent grid's blocks, two per SM where a row is at
+    most 1 KB, else one (never more than ``rows``; csrc/layer_norm.cu cuts
+    the grid further to the call's tiles of 8-32 rows), one scratch row
+    each; on the scalar path MAX_BWD_BLOCKS, the most its occupancy-sized
+    grid launches."""
+    if not vector:
+        return MAX_BWD_BLOCKS
+    return min((2 if C * element_size <= 1024 else 1) * sms, rows)
+
+
+def _sm_count(device: torch.device) -> int:
+    """SMs of a CUDA device, read once per device."""
+    i = device.index if device.index is not None else torch.cuda.current_device()
+    if i not in _sm_counts:
+        _sm_counts[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _sm_counts[i]
 
 
 def _check_cuda_args(x, weight, bias):
@@ -137,9 +179,10 @@ def layer_norm_backward(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
     """VJP of ``layer_norm`` at x: (dx in x's dtype, dweight, dbias fp32).
 
     On the card: the backward kernel with the forward's saved fp32 mean and
-    rstd (rows,); a dy that is not contiguous is copied first (counted in
-    ``layer_norm_backward.dy_copies``). On the CPU: ``layer_norm_backward_ref``
-    (mean and rstd unused)."""
+    rstd (contiguous (rows,)) and ``bwd_scratch_rows`` rows of scratch; a dy
+    that is not contiguous is copied first (counted in
+    ``layer_norm_backward.dy_copies``).
+    On the CPU: ``layer_norm_backward_ref`` (mean and rstd unused)."""
     if x.device.type == "cpu":
         return layer_norm_backward_ref(dy, x, weight, eps)
     if x.device.type != "cuda":
@@ -155,19 +198,23 @@ def layer_norm_backward(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
     _check_cuda_args(x, weight, weight)
     rows = x.numel() // C
     for name, s in (("mean", mean), ("rstd", rstd)):
-        if s.dtype != torch.float32 or s.shape != (rows,) or s.device != x.device:
-            raise ValueError(f"{name} must be ({rows},) float32 on {x.device}")
+        if (s.dtype != torch.float32 or s.shape != (rows,) or s.device != x.device
+                or not s.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({rows},) float32 tensor on "
+                             f"{x.device}")
     dx = torch.empty_like(x)
     dw = torch.empty(C, dtype=torch.float32, device=x.device)
     db = torch.empty_like(dw)
     if rows == 0:
         return dx, dw.zero_(), db.zero_()
-    partial = torch.empty(2 * MAX_BWD_BLOCKS * C, dtype=torch.float32, device=x.device)
+    vector = _vector_path(x, dy, weight, dx, mean, rstd)
+    scratch = bwd_scratch_rows(rows, C, x.element_size(), vector, _sm_count(x.device))
+    partial = torch.empty(2 * scratch * C, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _kernels()[1](x.data_ptr(), dy.data_ptr(), weight.data_ptr(), mean.data_ptr(),
-                            rstd.data_ptr(), dx.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-                            db.data_ptr(), rows, C, _DTYPE_CODE[x.dtype],
-                            int(_vector_path(x, dy, weight, dx)),
+                            rstd.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+                            scratch, dw.data_ptr(), db.data_ptr(), rows, C,
+                            _DTYPE_CODE[x.dtype], int(vector),
                             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"layer_norm backward kernel launch failed: cudaError {err}")

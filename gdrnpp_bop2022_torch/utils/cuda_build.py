@@ -11,7 +11,9 @@ plus the source's own flags from ``EXTRA_FLAGS``, into
 the source and all its flags, and loaded with ``ctypes``. A file with a
 plain C interface builds in seconds; nothing here includes PyTorch's
 headers. ``build_kernel_libraries`` starts one nvcc per missing source, all
-at once. A build that fails raises: there is no fallback.
+at once. A build that fails raises: there is no fallback. What nvcc printed
+on standard error (ptxas's registers and spills, for a source built with
+``-Xptxas -v``) is kept beside the library as ``<name>-<hash>.log``.
 
 ``load_host_library`` builds a host C++ source with a plain C interface
 (``native/rle.cpp``, the RLE codec) the same way with ``g++`` (or $CXX)
@@ -23,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,6 +44,9 @@ EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     # and the edge functions must round each operation as the plain PyTorch
     # version does, or pixels on a seam flip between versions
     "raster": ("-fmad=false", "-prec-div=true", "-ftz=false"),
+    # ptxas prints each kernel's registers, shared memory and spills into the
+    # build log (build_log): the backward must not spill
+    "layer_norm": ("-Xptxas", "-v"),
 }
 
 GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
@@ -80,9 +86,45 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{key}.so"
 
 
+def build_log(name: str) -> str:
+    """What nvcc printed on standard error while building csrc/<name>.cu
+    (empty if this checkout has not built it)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                           r"(\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (mangled name) of an ``-Xptxas -v`` log: registers, stack
+    frame, spill stores and spill loads, in bytes."""
+    out: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_SPILLS.search(line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def build_kernel_libraries(names: Sequence[str]) -> None:
     """Compile every csrc/<name>.cu whose build is missing, one nvcc each,
-    all started together; raise if any fails."""
+    all started together, keeping what nvcc prints on standard error in a
+    log beside the library (``build_log``); raise if any fails."""
     todo = [n for n in dict.fromkeys(names) if not library_path(n).exists()]
     if not todo:
         return
@@ -105,6 +147,7 @@ def build_kernel_libraries(names: Sequence[str]) -> None:
             if proc.returncode != 0:
                 failed.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{err}")
             else:
+                library_path(name).with_suffix(".log").write_text(err)
                 os.replace(tmp, library_path(name))
         if failed:
             raise RuntimeError("\n".join(failed))

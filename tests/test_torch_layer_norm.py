@@ -12,14 +12,17 @@ through ``layer_norm_ref``, which ``layer_norm`` runs on the CPU) is held to
 ``jax.grad`` through it in fp32 at 1e-5, on ragged row counts and
 C = 96 / 100 / 128.
 
-``_vector_path`` (which of the kernel's two paths a call takes) is
-checked here; the CUDA kernels themselves run only on the card: the ``gpu``
-tests at the end compare both paths of the forward and of the backward
-with the plain versions there (C = 100 and an input offset by one element
-take the scalar path) and skip on a machine without one. Backward
-tolerances on the card: fp32 dx at 1e-5; bf16 dx within one bf16 ulp of the
-plain dx + 1e-5; dweight / dbias at 1e-4 relative to the sum of the
-absolute values of their terms (the kernel sums rows in another order).
+``_vector_path`` (which of the kernel's two paths a call takes) and
+``bwd_scratch_rows`` (the backward's scratch rows, on the vector path the
+persistent grid's blocks) are checked here; the CUDA kernels themselves
+run only on the card: the ``gpu`` tests at the end compare both paths of
+the forward and of the backward with the plain versions there (C = 100 and
+an input offset by one element take the scalar path; the backward also at
+its tiles' edges, with mean / rstd views, and 20 calls in a row bit for
+bit) and skip on a machine without one. Backward tolerances on the card: fp32
+dx at 1e-5; bf16 dx within one bf16 ulp of the plain dx + 1e-5; dweight /
+dbias at 1e-4 relative to the sum of the absolute values of their terms
+(the kernel sums rows in another order).
 """
 
 import jax
@@ -103,6 +106,45 @@ def test_vector_path_needs_whole_vectors_and_alignment(dtype, C, offset, vector)
     w, b = torch.ones(C), torch.zeros(C)
     assert ln_mod._vector_path(x, torch.empty_like(x), w, b) == vector
     assert not ln_mod._vector_path(x, torch.empty_like(x), torch.ones(C + 1)[1:], b)
+
+
+@pytest.mark.parametrize("rows,C,size,vector,want", [
+    # the four main-path widths at batch 48, bf16
+    (48 * 4096, 128, 2, True, 264), (48 * 1024, 256, 2, True, 264),
+    (48 * 256, 512, 2, True, 264), (48 * 64, 1024, 2, True, 132),
+    # fewer rows than blocks (the kernel launches one block: one tile)
+    (1, 1024, 2, True, 1), (3, 1024, 2, True, 3), (5, 128, 2, True, 5),
+    # a ragged last tile
+    (48 * 256 + 5, 512, 2, True, 264),
+    # fp32: a row of 2 KB takes one block per SM, one of 1 KB or less two
+    (48 * 256, 512, 4, True, 132), (48 * 256, 256, 4, True, 264),
+    (1001, 100, 4, True, 264),
+    # the scalar path: the occupancy-sized grid's 1024-row scratch
+    (48 * 4096, 128, 2, False, 1024), (1, 100, 2, False, 1024)])
+def test_backward_scratch_rows(rows, C, size, vector, want):
+    # on an H100 (132 SMs): one scratch row per block of the persistent
+    # grid, two blocks per SM where a row is at most 1 KB, else one
+    assert ln_mod.bwd_scratch_rows(rows, C, size, vector, 132) == want
+
+
+def test_ptxas_usage_reads_registers_and_spills(tmp_path, monkeypatch):
+    log = ("ptxas info    : Compiling entry function '_Z4fwdv' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z4fwdv\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 40 registers, 384 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_Z4bwdv' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z4bwdv\n"
+           "    8 bytes stack frame, 12 bytes spill stores, 4 bytes spill loads\n"
+           "ptxas info    : Used 112 registers, used 1 barriers, 1 bytes smem\n")
+    assert cuda_build.ptxas_usage(log) == {
+        "_Z4fwdv": {"stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 40},
+        "_Z4bwdv": {"stack": 8, "spill_stores": 12, "spill_loads": 4, "registers": 112}}
+    # B1 is built with ptxas's report, which the build keeps beside the library
+    assert cuda_build.kernel_flags("layer_norm")[-2:] == ("-Xptxas", "-v")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    assert cuda_build.build_log("layer_norm") == ""
+    cuda_build.library_path("layer_norm").with_suffix(".log").write_text(log)
+    assert cuda_build.build_log("layer_norm") == log
 
 
 @pytest.mark.parametrize("shape", [(5, 7, 96), (3, 11, 100), (2, 3, 5, 128)])
@@ -214,20 +256,38 @@ def _bwd_case(dev, dtype, rows, C, offset=0):
     return x, dy, w, b
 
 
-def _check_bwd(x, dy, w, b):
-    xr = x.detach().clone().requires_grad_(True)
-    wr = w.detach().clone().requires_grad_(True)
-    br = b.detach().clone().requires_grad_(True)
+def _bwd_grads(x, dy, w, b, stats_offset=None):
+    """(dx, dweight, dbias) of the kernel: through gdrnpp::layer_norm's
+    autograd as training calls it, or, with stats_offset, by calling
+    layer_norm_backward with the forward's mean and rstd copied into views
+    that start stats_offset rows into their buffers."""
     before = (layer_norm.launches, layer_norm_backward.launches,
               layer_norm_backward.reduce_launches)
-    y = layer_norm(xr, wr, br)                  # gdrnpp::layer_norm with statistics
-    y.backward(dy)
+    if stats_offset is None:
+        xr = x.detach().clone().requires_grad_(True)
+        wr = w.detach().clone().requires_grad_(True)
+        br = b.detach().clone().requires_grad_(True)
+        layer_norm(xr, wr, br).backward(dy)     # gdrnpp::layer_norm with statistics
+        out = xr.grad, wr.grad, br.grad
+    else:
+        _, mean, rstd = ln_mod._forward_cuda(x, w, b, 1e-6, with_stats=True)
+        views = []
+        for s in (mean, rstd):
+            buf = torch.full((s.numel() + stats_offset,), float("nan"), device=s.device)
+            buf[stats_offset:] = s
+            views.append(buf[stats_offset:])
+        out = layer_norm_backward(dy, x, w, *views)
     torch.cuda.synchronize()
     assert (layer_norm.launches, layer_norm_backward.launches,
             layer_norm_backward.reduce_launches) == tuple(v + 1 for v in before)
+    return out
+
+
+def _check_bwd(x, dy, w, b, stats_offset=None):
+    dx, dw, db = _bwd_grads(x, dy, w, b, stats_offset)
     dx_ref, dw_ref, db_ref = layer_norm_backward_ref(dy, x, w)
     ref = dx_ref.float()
-    err = (xr.grad.float() - ref).abs()
+    err = (dx.float() - ref).abs()
     if x.dtype == torch.float32:
         assert float(err.max()) <= 1e-5
     else:
@@ -235,16 +295,12 @@ def _check_bwd(x, dy, w, b):
         assert (err <= torch.ldexp(torch.ones_like(ref), e - 8) + 1e-5).all()
     xhat = (x.float() - x.float().mean(-1, keepdim=True)) * torch.rsqrt(
         x.float().var(-1, unbiased=False, keepdim=True) + 1e-6)
-    for got, want, terms in ((wr.grad, dw_ref, (dy.float() * xhat).abs().sum(0)),
-                             (br.grad, db_ref, dy.float().abs().sum(0))):
+    for got, want, terms in ((dw, dw_ref, (dy.float() * xhat).abs().sum(0)),
+                             (db, db_ref, dy.float().abs().sum(0))):
         assert ((got - want).abs() <= 1e-4 * terms + 1e-6).all()
     # the same bits again: no atomics, a fixed reduction order
-    xr2 = x.detach().clone().requires_grad_(True)
-    wr2 = w.detach().clone().requires_grad_(True)
-    br2 = b.detach().clone().requires_grad_(True)
-    layer_norm(xr2, wr2, br2).backward(dy)
-    assert torch.equal(xr2.grad, xr.grad) and torch.equal(wr2.grad, wr.grad)
-    assert torch.equal(br2.grad, br.grad)
+    again = _bwd_grads(x, dy, w, b, stats_offset)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dx, dw, db)))
 
 
 @pytest.mark.gpu
@@ -268,3 +324,51 @@ def test_backward_scalar_path_matches_plain_on_card(dtype, rows, C, offset):
     x, dy, w, b = _bwd_case(dev, dtype, rows, C, offset)
     assert not ln_mod._vector_path(x, dy, w, x)
     _check_bwd(x, dy, w, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,C", [(1, 1024), (3, 1024), (48 * 256 + 5, 512)])
+def test_backward_tile_edges_match_plain_on_card(rows, C, dtype):
+    # one block whose one tile holds 1 or 3 rows (fewer tiles than stages;
+    # mean and rstd read without the bulk copy), and a last tile of 5 rows
+    # after ~3 tiles a block (more tiles than stages)
+    dev = _cuda_or_skip()
+    x, dy, w, b = _bwd_case(dev, dtype, rows, C)
+    assert ln_mod._vector_path(x, dy, w, x)
+    _check_bwd(x, dy, w, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stats_offset,vector", [(1, False), (4, True)])
+def test_backward_stats_views_match_plain_on_card(stats_offset, vector):
+    # mean and rstd as views into larger buffers: one starting at an odd row
+    # (not 16-byte aligned: the scalar path), one 4 rows in (aligned: the
+    # bulk copies read mean and rstd from 16 bytes past the buffer's start)
+    dev = _cuda_or_skip()
+    x, dy, w, b = _bwd_case(dev, torch.bfloat16, 48 * 256 + 5, 512)
+    stats = torch.empty(x.shape[0] + stats_offset, device=dev)[stats_offset:]
+    assert ln_mod._vector_path(x, dy, w, x, stats, stats) == vector
+    _check_bwd(x, dy, w, b, stats_offset=stats_offset)
+
+
+@pytest.mark.gpu
+def test_backward_calls_in_a_row_give_the_same_bits_on_card():
+    # 20 calls, each with its own scratch from the allocator
+    dev = _cuda_or_skip()
+    x, dy, w, b = _bwd_case(dev, torch.bfloat16, 48 * 256, 512)
+    _, mean, rstd = ln_mod._forward_cuda(x, w, b, 1e-6, with_stats=True)
+    first = layer_norm_backward(dy, x, w, mean, rstd)
+    for _ in range(19):
+        out = layer_norm_backward(dy, x, w, mean, rstd)
+        assert all(torch.equal(a, b) for a, b in zip(out, first))
+
+
+@pytest.mark.gpu
+def test_backward_rejects_strided_stats_on_card():
+    dev = _cuda_or_skip()
+    x, dy, w, b = _bwd_case(dev, torch.bfloat16, 64, 256)
+    _, mean, rstd = ln_mod._forward_cuda(x, w, b, 1e-6, with_stats=True)
+    strided = torch.empty(128, device=dev)[::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        layer_norm_backward(dy, x, w, strided, rstd)
